@@ -1,18 +1,16 @@
 #!/usr/bin/env python
-"""Benchmark table for the whole corpus at production sizes.
+"""Time the corpus at production sizes on one GPU.
 
-Prints, per program: chosen strategy, block, analytic B/cell-update, % of
-its dtype-aware HBM roofline, estimated v5e GCell-updates/s at the HBM and
-VPU bounds, and (with --measure, on real silicon) wall-clock.
+Prints the card line, then per program: grid, iterate, compile seconds,
+ms per call, GCell-updates/s and GB/s of ideal traffic (utils/report.py),
+all through the main path (`sodac`'s XLA backend), warm, with
+`block_until_ready`.  Exits non-zero without a GPU.
 
-Analytic numbers are exact byte counts from the plan; wall-clock on
-timing-emulated devices is labeled as such (BASELINE.md caveat).
+    python benchmarks/run_all.py
 """
 
-import argparse
 import pathlib
 import sys
-import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
@@ -28,130 +26,42 @@ CONFIGS = [
     ("jacobi2d", (2048, 2048), None),          # iterate 8 from the DSL
     ("seidel2d", (2048, 2048), None),          # iterate 4
     ("jacobi3d", (512, 512, 512), None),       # headline single sweep
-    ("jacobi3d", (1024, 1024, 1024), None),    # 4 GiB arrays, hw-verified
-    ("jacobi3d", (512, 512, 512), 8),          # temporal fusion
+    ("jacobi3d", (1024, 1024, 1024), None),    # 4 GiB arrays
+    ("jacobi3d", (512, 512, 512), 8),
     ("heat3d", (256, 256, 256), None),         # iterate 4
     ("denoise3d", (256, 256, 256), None),
     ("gradmag3d", (256, 256, 512), None),
-    ("smooth_half", (4096, 4096), None),       # 2 B/cell f16-bit streaming
-    ("accum64", (2048, 2048), None),           # in-kernel s64 pair carriers
-    ("poisson_f64", (2048, 2048), None),       # in-kernel double-single f64
-    ("poisson3d_f64", (256, 256, 256), None),  # pair-aware 3-D line buffer
-    ("reaction_f64", (2048, 2048), None),      # DS-accurate exp in-kernel
-]
-
-HOST_TILED = [
-    # grids LARGER than one chip's HBM: auto tiles + auto pass cadence
-    # (program, grid shape, device hbm budget)
-    ("jacobi3d", (2048, 2048, 2048), 12 * 2**30),   # 32 GiB of f32 arrays
-    ("jacobi2d", (16384, 16384), 256 * 2**20),      # iterate 8, tiny budget
-    ("poisson_f64", (8192, 8192), 512 * 2**20),     # wide pair tiles
+    ("smooth_half", (4096, 4096), None),
+    ("accum64", (2048, 2048), None),
+    ("poisson_f64", (2048, 2048), None),
+    ("poisson3d_f64", (256, 256, 256), None),
+    ("reaction_f64", (2048, 2048), None),
 ]
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--measure", action="store_true",
-                    help="also run wall-clock on the attached device")
-    ap.add_argument("--lb-engine", choices=["mosaic", "ep"], default=None,
-                    help="line-buffer march engine (see sodac --lb-engine); "
-                         "set before planning so the table models it")
-    args = ap.parse_args()
+    from soda_tpu.utils.compile_cache import enable_compile_cache
+    from soda_tpu.utils.timing import card_line, require_gpu, time_program
 
-    if args.lb_engine:
-        from soda_tpu.utils.config import set_lb_engine
-        set_lb_engine(args.lb_engine)
-
+    enable_compile_cache()
+    dev = require_gpu()
     from soda_tpu.frontend.parser import parse_file
-    from soda_tpu.plan.planner import plan as make_plan
-    from soda_tpu.utils.report import analyze
 
     here = pathlib.Path(__file__).resolve().parents[1] / "tests" / "soda"
-
-    hdr = (f"{'program':<12} {'grid':<16} {'it':>3} {'strategy':<10} "
-           f"{'block':<16} {'B/upd':>7} {'%roof':>6} {'HBM G/s':>8} "
-           f"{'VPU G/s':>8}")
+    print(card_line())
+    print(f"device: {dev.platform} {dev.device_kind!r}")
+    hdr = (f"{'program':<14} {'grid':<16} {'it':>3} {'compile s':>9} "
+           f"{'ms/call':>9} {'GCell/s':>9} {'ideal GB/s':>10}")
     print(hdr)
     print("-" * len(hdr))
     for name, shape, it in CONFIGS:
-        ov = {"iterate": it} if it else None
-        program = parse_file(here / f"{name}.soda", overrides=ov)
-        pl = make_plan(program, shape)
-        rep = analyze(pl, program=program)
-        g = pl.groups[0]
-        line = (f"{name:<12} {'x'.join(map(str, shape)):<16} "
-                f"{max(program.iterate,1):>3} {g.strategy:<10} "
-                f"{'x'.join(map(str, g.block)):<16} "
-                f"{rep.bytes_per_cell_update:>7.2f} "
-                f"{100*rep.roofline_fraction:>5.0f}% "
-                f"{rep.est_gcells_per_s_v5e:>8.1f} "
-                f"{rep.est_vpu_bound_gcells:>8.1f}")
-        if args.measure:
-            import jax
-            import jax.numpy as jnp
-            import numpy as np
-
-            from soda_tpu.backend import pallas as pb
-
-            ins = {}
-            rng = np.random.default_rng(0)
-            for n in program.input_names:
-                t = program.tensors[n].type
-                ins[n] = (rng.standard_normal(shape).astype(t.np_dtype())
-                          if t.is_float else
-                          rng.integers(0, 200, shape).astype(t.np_dtype()))
-            ps = {p.name: rng.standard_normal(p.shape).astype(p.type.np_dtype())
-                  for p in program.params.values()}
-            from soda_tpu.interp.wide64 import program_is_wide
-
-            fn = jax.jit(pb.build_fn(program, the_plan=pl))
-            if program_is_wide(program):
-                # wide programs jit end-to-end over W pair carriers
-                from soda_tpu.backend.pallas import (to_wide_params,
-                                                     to_wide_values)
-                jins = to_wide_values(program, ins)
-                jps = to_wide_params(program, ps)
-            else:
-                jins = {k: jnp.asarray(v) for k, v in ins.items()}
-                jps = {k: jnp.asarray(v) for k, v in ps.items()}
-            out = fn(jins, jps)
-            jax.block_until_ready(out)
-            t0 = time.perf_counter()
-            for _ in range(3):
-                out = fn(jins, jps)
-            jax.block_until_ready(out)
-            dt = (time.perf_counter() - t0) / 3
-            import math
-            updates = math.prod(shape) * max(program.iterate, 1)
-            line += f"  wall {updates/dt/1e9:>8.1f} G/s"
-        print(line)
-
-    # oversize grids through host tiling: effective per-update traffic =
-    # per-tile plan traffic x halo-recompute amplification (the whole
-    # grid streams through PCIe+HBM once per pass — reference host loop)
-    from soda_tpu.parallel.host_tile import (choose_sweeps_per_pass,
-                                             plan_host_tiling)
-    print()
-    hdr2 = (f"{'host-tiled':<12} {'grid':<16} {'tiles':<15} "
-            f"{'nf':>3} {'pass':>4} {'amp':>6} {'eff B/upd':>9} "
-            f"{'%roof':>6}")
-    print(hdr2)
-    print("-" * len(hdr2))
-    for name, shape, budget in HOST_TILED:
-        program = parse_file(here / f"{name}.soda")
-        nf, tiles = choose_sweeps_per_pass(program, shape, tiles=None,
-                                           hbm_budget=budget)
-        _, _, ext, nt, _, passes, amp = plan_host_tiling(
-            program, shape, tiles, nf)
-        it = max(program.iterate, 1)
-        pl = make_plan(program, ext,
-                       iterate=None if nf == it else nf)
-        rep = analyze(pl, program=program)
-        eff = rep.bytes_per_cell_update * amp
-        print(f"{name:<12} {'x'.join(map(str, shape)):<16} "
-              f"{'x'.join(map(str, tiles)):<15} {nf:>3} {passes:>4} "
-              f"{amp:>5.2f}x {eff:>9.2f} "
-              f"{100*rep.roofline_fraction/amp:>5.0f}%")
+        program = parse_file(here / f"{name}.soda",
+                             overrides={"iterate": it} if it else None)
+        r = time_program(program, shape)
+        print(f"{name:<14} {'x'.join(map(str, shape)):<16} "
+              f"{max(program.iterate, 1):>3} {r['compile_s']:>9.2f} "
+              f"{r['seconds'] * 1e3:>9.3f} {r['gcell_updates_per_s']:>9.2f} "
+              f"{r['ideal_gb_per_s']:>10.1f}")
     return 0
 
 

@@ -4,8 +4,7 @@ CPU meshes vs the NumPy oracle.
 
 Covers the axes the unit tests sample only pointwise: UNEVEN grids
 (pad-to-shard with masked outputs), 1-D/2-D meshes, exchange cadences
-(every sweep / chunked / full), comms-compute overlap, both local
-backends (xla / per-shard Pallas in interpret mode), multi-stage
+(every sweep / chunked / full), comms-compute overlap, multi-stage
 programs, and 64-bit plane-pair sharding.
 
 Gates: SINGLE-STAGE programs at exchange-every-sweep compare on the
@@ -16,8 +15,7 @@ tolerance (XLA contracts mul+add into FMA where numpy rounds separately
 deeper cadences compare with the border-invalid rim excluded: stage
 values at virtual out-of-grid rows are computed from zero-filled inputs
 rather than defined as zero, so mixed-sign chains legitimately deviate
-inside the rim — identical to the single-chip Pallas constant-extent
-semantics (docs/SEMANTICS.md, border: ignore).
+inside the rim (docs/SEMANTICS.md, border: ignore).
 
     python scripts/fuzz_mesh.py [n_seeds]
 
@@ -113,16 +111,11 @@ def main() -> int:
         ])
         spe = rng.choice([1, 1, None, it if it > 1 else None])
         overlap = rng.random() < 0.3
-        # pallas local in interpret mode is slow per shard; subsample
-        local = "pallas" if seed % 7 == 3 else "xla"
         kw = dict(mesh_cfg)
         if spe is not None:
             kw["sweeps_per_exchange"] = spe
         if overlap:
             kw["overlap"] = True
-        if local == "pallas":
-            kw["local_backend"] = "pallas"
-            kw["interpret"] = True
         try:
             gold = numpy_interp.run(p, {"a": x})["out"]
             got = run_sharded(p, {"a": x}, **kw)["out"]
@@ -149,7 +142,7 @@ def main() -> int:
         else:
             ok = np.array_equal(g, o)
         cfg = (f"{'x'.join(map(str, mesh_cfg['axis_sizes']))}mesh "
-               f"spe={spe} ov={int(overlap)} {local}")
+               f"spe={spe} ov={int(overlap)}")
         print(f"seed {seed} [{base} it={it} {shape} {cfg}]: "
               f"{'OK' if ok else 'MISMATCH'}")
         if not ok:

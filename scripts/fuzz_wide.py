@@ -1,17 +1,15 @@
 #!/usr/bin/env python
-"""Heavy fuzz for the in-kernel 64-bit wide mode: random expression trees
-over int64/uint64/double/half (casts both ways, dynamic shift amounts, pow2
+"""Heavy fuzz for the 64-bit types: random expression trees over
+int64/uint64/double/half (casts both ways, dynamic shift amounts, pow2
 and general div/mod, min/max, ternaries, bitwise), random grids
-(aligned/unaligned), random iterate — Pallas (interpret) vs the 64-bit
-NumPy oracle.  Integers must be BIT-EXACT; doubles within double-single
-tolerance.  Not part of CI (takes minutes): run ad hoc after touching
-interp/wide64.py or the pair plumbing.
+(aligned/unaligned), random iterate — the XLA path (native x64) vs the
+64-bit NumPy oracle.  Integers must be BIT-EXACT; doubles within 1e-10.
+Not part of CI (takes minutes): run ad hoc after touching the evaluator
+or the wide plumbing.
 
-    python scripts/fuzz_wide.py [n_seeds] [--hw]
+    python scripts/fuzz_wide.py [n_seeds]
     python scripts/fuzz_wide.py [n_seeds] --w128   # 65..128-bit quad-limb fuzz
                                   # (oracle vs __int128 C++ vs XLA)
-
---hw additionally compiles a subsample on the attached TPU.
 """
 
 import pathlib
@@ -226,11 +224,10 @@ def fuzz_128(n: int) -> int:
 def main() -> int:
     n = int(sys.argv[1]) if len(sys.argv) > 1 and sys.argv[1].isdigit() \
         else 40
-    hw = "--hw" in sys.argv
     if "--w128" in sys.argv:
         return fuzz_128(n)
 
-    from soda_tpu.backend import pallas as pb
+    from soda_tpu.backend import xla as xb
     from soda_tpu.frontend.parser import parse
     from soda_tpu.interp import numpy_interp
 
@@ -265,9 +262,8 @@ def main() -> int:
                    for _ in range(p.rank))
         if gold[sl].size == 0:
             continue
-        interp = not hw or seed % 8 != 0
         try:
-            got = pb.run(p, {"a": x}, interpret=interp)["out"]
+            got = xb.run(p, {"a": x})["out"]
         except Exception as e:  # noqa: BLE001
             print(f"seed {seed}: RUN FAILED {type(e).__name__}: {e}\n{src}")
             failures += 1
@@ -277,8 +273,8 @@ def main() -> int:
             o = got[sl].astype(np.float64)
             rel = np.abs(g - o) / np.maximum(np.abs(g), 1.0)
             if base == "half":
-                # oracle rounds per op; kernel computes f32 between
-                # f16-rounded stores (docs/SEMANTICS.md).  Near-zero
+                # oracle rounds per op; the XLA path computes f32
+                # between f16-rounded stores (docs/SEMANTICS.md).  Near-zero
                 # ternary/min-max comparisons flip under that channel
                 # (f16 rounds tiny sums to exact 0 where f32 keeps a
                 # sign) and iterate feedback spreads the flipped cells
@@ -299,8 +295,7 @@ def main() -> int:
                 ok = rel.max() < 1e-10
         else:
             ok = np.array_equal(gold[sl], got[sl])
-        mode = "hw" if (hw and not interp) else "interp"
-        print(f"seed {seed} [{base}, {mode}]: {'OK' if ok else 'MISMATCH'}")
+        print(f"seed {seed} [{base}]: {'OK' if ok else 'MISMATCH'}")
         if not ok:
             print(src)
             failures += 1

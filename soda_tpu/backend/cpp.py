@@ -2,12 +2,12 @@
 
 The reference's generated OpenCL host embeds a naive C++ loop nest as its
 golden model (src/soda/codegen/xilinx/host.py per SURVEY.md §2.2/§4,
-reconstructed — empty mount).  This module preserves that property for the
-TPU rebuild: it generates a standalone C++ program implementing the same
+reconstructed — empty mount).  This module preserves that property: it
+generates a standalone C++ program implementing the same
 stencil semantics (zero-fill taps, int64 accumulators, C division, width
 masking at stores, float32 literals), compiles it with g++, and runs it on
-raw binary tensors, so TPU results are validated against native C++ exactly
-as the reference validates FPGA results.
+raw binary tensors, so device results are validated against native C++
+exactly as the reference validates FPGA results.
 
 Expression evaluation order is preserved verbatim from the IR (no
 reassociation), matching the bit-consistency requirement of the north star.

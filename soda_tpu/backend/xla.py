@@ -1,21 +1,26 @@
-"""Pure-XLA (jnp) backend: full-grid stencil execution.
+"""XLA backend: the main execution path.
 
-This is the portable execution path — it runs on CPU/GPU/TPU, underpins the
-sharded per-device local compute in parallel/mesh.py, and cross-checks the
-Pallas backend.  XLA's fusion handles producer/consumer stage fusion here;
-the Pallas backend (backend/pallas.py) exists to control VMEM tiling and
-halo traffic explicitly (the SODA reuse-buffer analog, SURVEY.md §2.1).
+Each sweep evaluates every stage over the full grid with `jax.numpy`;
+`iterate` sweeps run as one `lax.scan` inside one jitted function.  XLA
+fuses the zero-fill shifted taps and the stage arithmetic of a sweep into
+loop fusions, so no padded copy of a grid is ever written.  The same
+function is the per-tile compute of host tiling (parallel/host_tile.py)
+and the per-shard compute of the mesh (parallel/mesh.py).
 
 Semantics match the NumPy oracle: zero-fill taps, wide-int accumulators
-(int32 on TPU — see ir/types.py), C division, masking at stores.
+(int32 for programs of 32-bit types — see ir/types.py), C division,
+masking at stores.  Programs with >32-bit types run native int64/float64
+under `jax.enable_x64`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..ir.program import StencilProgram
 from ..interp.evaluator import EvalContext, eval_expr, store_cast
@@ -38,22 +43,12 @@ def shifted_jnp(a: jax.Array, offsets: tuple[int, ...]) -> jax.Array:
 
 
 def _needs_wide(program: StencilProgram) -> bool:
-    """True when any tensor/param is wider than the 32-bit TPU word
+    """True when any tensor/param is wider than 32 bits
     (incl. synthetic stages: running them in x64 wide mode keeps the
     oracle-exact semantics their int64 typing exists for)."""
     types = [t.type for t in program.tensors.values()]
     types += [p.type for p in program.params.values()]
     return any(t.width > 32 for t in types)
-
-
-def user_wide_types(program: StencilProgram) -> list[str]:
-    """Names of USER-declared >32-bit tensors/params (synthetic
-    compiler-generated stages excluded) — the shared predicate for the
-    32-bit-carrier paths' loud rejections."""
-    out = [n for n, t in program.tensors.items()
-           if t.type.width > 32 and not t.synthetic]
-    out += [p.name for p in program.params.values() if p.type.width > 32]
-    return out
 
 
 def _compute_dtype(program: StencilProgram, name: str, wide: bool = False):
@@ -91,12 +86,11 @@ def _sweep(program: StencilProgram, arrays: dict, params: dict,
 def build_fn(program: StencilProgram, iterate: int | None = None):
     """Build a jittable fn(inputs: dict, params: dict) -> dict of outputs.
 
-    Arrays are in TPU compute dtypes (float32 / int32).  Programs with
-    >32-bit types run in WIDE mode: int64 accumulators (exact — XLA
-    emulates s64 on TPU) and float64 (XLA's f32-pair emulation, ~2^-50
-    precision); requires jax x64 — run() wraps the call in
-    jax.enable_x64(True).  The caller converts to declared
-    storage dtypes if needed (run() does this)."""
+    Arrays are in compute dtypes (float32 / int32).  Programs with
+    >32-bit types run in WIDE mode: native int64 accumulators and
+    float64; requires jax x64 — Runner wraps the call in
+    jax.enable_x64(True).  The caller converts to declared storage
+    dtypes (Runner.fetch does this)."""
     from ..interp.wide128 import V, program_is_128
 
     it = program.iterate if iterate is None else iterate
@@ -111,7 +105,7 @@ def build_fn(program: StencilProgram, iterate: int | None = None):
         if wide and not jax.config.jax_enable_x64:
             raise RuntimeError(
                 f"program {program.name!r} uses >32-bit types: run under "
-                "jax.enable_x64(True) (xla.run does this "
+                "jax.enable_x64(True) (xla.Runner does this "
                 "automatically)")
         arrays = {}
         for n in program.input_names:
@@ -148,63 +142,109 @@ def build_fn(program: StencilProgram, iterate: int | None = None):
     return fn
 
 
-def run(
-    program: StencilProgram,
-    inputs: Mapping[str, "jnp.ndarray"],
-    params: Mapping[str, "jnp.ndarray"] | None = None,
-    iterate: int | None = None,
-    jit: bool = True,
-):
-    """Execute and return numpy outputs in declared storage dtypes."""
-    import numpy as np
+def check_io(program: StencilProgram, inputs, params) -> None:
+    missing = [n for n in program.input_names if n not in inputs]
+    if missing:
+        raise ValueError(
+            f"missing input tensor(s) {missing}; program {program.name!r} "
+            f"expects inputs {program.input_names}")
+    missing_p = [n for n in program.params if n not in params]
+    if missing_p:
+        raise ValueError(
+            f"missing param(s) {missing_p}; program {program.name!r} "
+            f"declares params {list(program.params)}")
 
-    from .pallas import _check_io, finalize_outputs
 
-    _check_io(program, inputs, params or {})
-    fn = build_fn(program, iterate)
-    if jit:
-        fn = jax.jit(fn)
+def finalize_outputs(program: StencilProgram, outs) -> dict:
+    """Convert backend outputs to declared storage dtypes with narrow-
+    width mask + sign extension (shared by the xla, host-tile and mesh
+    run paths)."""
+    res = {}
+    for n, v in outs.items():
+        t = program.tensors[n].type
+        a = np.asarray(v)
+        if t.is_int and t.needs_mask:
+            a = a & ((1 << t.width) - 1)
+            if t.kind == "int":
+                sign = 1 << (t.width - 1)
+                a = (a ^ sign) - sign
+        res[n] = a.astype(t.np_dtype())
+    return res
 
-    from ..interp import wide128
 
-    if wide128.program_is_128(program):
-        # >64-bit ints: host boundary converts object arrays of Python
-        # ints to quad-limb V carriers (a pytree — jits fine) and back;
-        # floats still ride x64 for f64
-        def _to_v(v, t):
+class Runner:
+    """One program compiled at one iterate: numpy in, numpy out.
+
+    `dispatch` starts the computation and returns device outputs without
+    waiting; `fetch` brings them to the host in declared storage dtypes.
+    Host tiling uses the split to keep one tile in flight while the
+    previous one is fetched."""
+
+    def __init__(self, program: StencilProgram, iterate: int | None = None):
+        from ..interp.wide128 import program_is_128
+
+        self.program = program
+        self.w128 = program_is_128(program)
+        self.wide = self.w128 or _needs_wide(program)
+        self.fn = jax.jit(build_fn(program, iterate))
+
+    def x64(self):
+        """Context that the jitted call (and its argument conversion) runs
+        under: 64-bit mode for programs with >32-bit types."""
+        return jax.enable_x64(True) if self.wide else contextlib.nullcontext()
+
+    def device_args(self, inputs: Mapping, params: Mapping | None = None):
+        """(inputs, params) as the jitted fn takes them.  >64-bit ints
+        arrive as object arrays of Python ints and become quad-limb V
+        carriers (a pytree)."""
+        from ..interp import wide128
+
+        params = dict(params or {})
+        if not self.w128:
+            return dict(inputs), params
+
+        def to_v(v, t):
             if t.is_int and t.width > 64 and not isinstance(v, wide128.V):
-                # wrap with the CARRIER rep (evaluator.acc_of): only
-                # full-width unsigned stays "u"; narrower unsigned (e.g.
-                # uint100) promotes to the signed int128 carrier — using
-                # "u" here would flip the scan-carry pytree metadata
-                # between input ("u") and stored stage value ("i") and
-                # crash iterate>1 programs
+                # the CARRIER rep (evaluator.acc_of): only full-width
+                # unsigned stays "u"; narrower unsigned (e.g. uint100)
+                # promotes to the signed int128 carrier — "u" here would
+                # flip the scan-carry pytree metadata between input and
+                # stored stage value and crash iterate>1 programs
                 rep = "u" if (not t.is_signed and t.width >= 128) else "i"
                 return wide128._object_to_limbs(
                     np.asarray(v, dtype=object), rep, jnp)
             return v
 
-        ins_v = {n: _to_v(inputs[n], program.tensors[n].type)
-                 for n in program.input_names}
-        par_v = {n: _to_v((params or {})[n], program.params[n].type)
-                 for n in (params or {})}
-        with jax.enable_x64(True):
-            outs = fn(ins_v, par_v)
+        prog = self.program
+        ins = {n: to_v(inputs[n], prog.tensors[n].type)
+               for n in prog.input_names}
+        pars = {n: to_v(v, prog.params[n].type) for n, v in params.items()}
+        return ins, pars
+
+    def dispatch(self, inputs: Mapping, params: Mapping | None = None):
+        ins, pars = self.device_args(inputs, params)
+        with self.x64():
+            return self.fn(ins, pars)
+
+    def fetch(self, outs) -> dict:
+        from ..interp import wide128
+
         res = {}
         for n, v in outs.items():
-            t = program.tensors[n].type
             if isinstance(v, wide128.V):
+                t = self.program.tensors[n].type
                 res[n] = (wide128.to_object_array(v, t.is_signed)
                           if v.rep != "p" else np.asarray(v.l))
             else:
                 res[n] = np.asarray(v)
-        return finalize_outputs(program, res)
-    if _needs_wide(program):
-        # 64-bit programs: exact int64 (XLA-emulated s64 on TPU) and
-        # emulated float64; scoped so the global default dtypes stay 32-bit
-        with jax.enable_x64(True):
-            outs = fn(dict(inputs), dict(params or {}))
-            outs = {k: np.asarray(v) for k, v in outs.items()}
-    else:
-        outs = fn(dict(inputs), dict(params or {}))
-    return finalize_outputs(program, outs)
+        return finalize_outputs(self.program, res)
+
+    def __call__(self, inputs: Mapping, params: Mapping | None = None):
+        return self.fetch(self.dispatch(inputs, params))
+
+
+def run(program: StencilProgram, inputs: Mapping, params: Mapping | None = None,
+        iterate: int | None = None) -> dict:
+    """Execute and return numpy outputs in declared storage dtypes."""
+    check_io(program, inputs, params or {})
+    return Runner(program, iterate)(inputs, params)

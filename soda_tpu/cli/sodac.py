@@ -4,24 +4,24 @@ Keeps the reference's CLI shape (src/sodac per SURVEY.md §2.1 L1,
 reconstructed — empty mount): positional `.soda` file, DSL-overriding knob
 flags (--unroll-factor/--tile-size/--iterate/--burst-width/--dram-in/--dram-out,
 CLI beats DSL), artifact-target flags.  The Xilinx artifact targets are
-replaced by TPU-native ones:
+replaced by:
 
   --cpp-golden FILE     emit the native C++ golden runner source (the
                         reference's generated-host golden model, standalone)
-  --pallas-driver FILE  emit a self-contained Python driver that lowers the
-                        program through the Pallas backend and runs it
-  --dump-plan [FILE]    emit the VMEM tiling plan as JSON (the analog of
-                        the reference's logged reuse-buffer/FIFO plan)
-  --report              print the compile report (roofline analytics)
+  --report              print the compile report (program-derived traffic,
+                        ops, halo creep and compile wall-clock)
   --run                 execute on random input, verify vs the NumPy oracle
-  --benchmark           time the compiled kernel (see --help caveats)
+  --benchmark           time the compiled program on the device
+
+Execution runs the XLA backend (backend/xla.py), alone, over host tiles
+(--host-tile) or sharded over a device mesh (--mesh).
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import logging
+import math
 import sys
 import time
 
@@ -38,10 +38,10 @@ def _parse_mesh(s: str):
     """'2,4' (or legacy '2x4') or 'dcn:2,x:4' -> (sizes, names,
     link_classes).
 
-    An axis named dcn* is classed as a cross-slice DCN link (slow); all
-    others ride ICI.  Unnamed axes get ax0, ax1, ...  The legacy 'x'
-    separator applies only to the UNNAMED form ('x' is a legitimate axis
-    name in the named form)."""
+    An axis named dcn* is classed as a slow link between hosts (its cost
+    must come from --link-model); all others ride NVLink.  Unnamed axes
+    get ax0, ax1, ...  The legacy 'x' separator applies only to the
+    UNNAMED form ('x' is a legitimate axis name in the named form)."""
     if ":" not in s:
         s = s.replace("x", ",")
     sizes, names = [], []
@@ -52,7 +52,7 @@ def _parse_mesh(s: str):
             name, sz = f"ax{i}", part
         names.append(name)
         sizes.append(int(sz))
-    links = {n: ("dcn" if n.startswith("dcn") else "ici") for n in names}
+    links = {n: ("dcn" if n.startswith("dcn") else "nvlink") for n in names}
     return tuple(sizes), tuple(names), links
 
 
@@ -73,19 +73,20 @@ def _parse_cadence(s: str | None, axis_names):
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sodac",
-        description="soda_tpu: TPU-native stencil compiler for the .soda DSL",
+        description="soda_tpu: stencil compiler for the .soda DSL, "
+                    "lowered to JAX/XLA",
     )
     ap.add_argument("soda_src", help="input .soda file")
     # DSL-overriding knobs (reference-compatible; CLI beats DSL)
     ap.add_argument("--unroll-factor", type=int, default=None,
                     help="accepted for compatibility; vectorization is "
-                         "native on TPU (VPU lanes)")
+                         "XLA's")
     ap.add_argument("--tile-size", type=_parse_int_list, default=None,
                     help="override input tile size, e.g. 512,512")
     ap.add_argument("--iterate", type=int, default=None)
     ap.add_argument("--burst-width", type=int, default=None,
-                    help="accepted for compatibility; DMA widths are "
-                         "planned by Mosaic")
+                    help="accepted for compatibility; memory transfers "
+                         "are XLA's")
     ap.add_argument("--dram-in", type=str, default=None)
     ap.add_argument("--dram-out", type=str, default=None)
     ap.add_argument("--border", type=str, default=None, choices=["ignore"])
@@ -93,47 +94,35 @@ def make_parser() -> argparse.ArgumentParser:
     # grid / execution
     ap.add_argument("--grid-shape", type=_parse_int_list, default=None,
                     help="concrete extents for '*' dims, e.g. 512,512,512")
-    ap.add_argument("--backend", choices=["pallas", "xla", "numpy"],
-                    default="pallas")
-    ap.add_argument("--block", type=_parse_int_list, default=None,
-                    help="override planner block shape")
-    ap.add_argument("--vmem-budget", type=int, default=96 * 2**20)
-    ap.add_argument("--sweeps", type=int, default=None,
-                    help="fused temporal sweeps per kernel call")
-    ap.add_argument("--interpret", action="store_true",
-                    help="run Pallas in interpreter mode (no TPU needed)")
+    ap.add_argument("--backend", choices=["xla", "numpy"], default="xla",
+                    help="xla: the compiled path (default); numpy: the "
+                         "oracle interpreter alone")
     ap.add_argument("--mesh", type=str, default=None,
-                    help="shard over a device mesh: sizes ('2,4') or named "
-                         "axes ('dcn:2,x:4' — an axis named dcn* is "
-                         "treated as a slow cross-slice DCN link and the "
-                         "planner exchanges its halo less often)")
+                    help="shard over a device mesh: sizes ('2,2') or named "
+                         "axes ('dcn:2,x:4' — an axis named dcn* is a slow "
+                         "link between hosts, whose cost --link-model must "
+                         "give; its halo is exchanged less often)")
     ap.add_argument("--sweeps-per-exchange", type=str, default=None,
                     metavar="K[,K...]",
                     help="halo-exchange cadence for --mesh: one value, or "
                          "one per mesh axis (each must divide iterate and "
                          "form a divisor chain); default: modeled auto")
-    ap.add_argument("--mesh-local-backend", choices=["xla", "pallas"],
-                    default="xla",
-                    help="per-shard local compute for --mesh: portable "
-                         "jnp (default) or per-shard Pallas kernels (the "
-                         "performance path on a real multi-chip pod)")
     ap.add_argument("--mesh-overlap", action="store_true",
                     help="overlap the halo exchange with interior compute "
                          "under --mesh (identical results; see "
                          "parallel/mesh.py)")
     ap.add_argument("--link-model", type=str, default=None,
                     metavar="CLASS=GBPS:LAT[,...]",
-                    help="calibrate the mesh link model driving auto "
-                         "cadence choice, e.g. 'ici=90:2e-6,dcn=6.25:1e-4' "
-                         "(also via SODA_LINK_MODEL env); defaults are "
-                         "modeled, not measured — see parallel/mesh.py")
+                    help="link costs driving the mesh's auto cadence, e.g. "
+                         "'nvlink=400:8e-6,dcn=25:1e-4'; nvlink defaults to "
+                         "the device table, dcn has no default")
     ap.add_argument("--host-tile", type=str, default=None,
                     metavar="T0,T1,...|auto",
-                    help="run grids larger than device HBM on ONE chip by "
-                         "looping overlapping tiles through the Pallas "
-                         "path (the reference host's sequential tiling); "
-                         "'auto' picks tiles fitting --hbm-budget. "
-                         "0 = full extent along a dim")
+                    help="run grids larger than device memory on ONE "
+                         "device by looping overlapping tiles through the "
+                         "XLA path (the reference host's sequential "
+                         "tiling); 'auto' picks tiles fitting "
+                         "--hbm-budget. 0 = full extent along a dim")
     ap.add_argument("--host-tile-sweeps", type=str, default=None,
                     metavar="K|auto",
                     help="sweeps per host-tiling pass (must divide "
@@ -143,26 +132,18 @@ def make_parser() -> argparse.ArgumentParser:
                          "rim, like --sweeps-per-exchange. 'auto' picks "
                          "the K minimizing modeled streamed traffic "
                          "(passes x halo-extended tile reads)")
-    ap.add_argument("--hbm-budget", type=int, default=12 * 2**30,
-                    help="device HBM budget (bytes) for --host-tile auto "
-                         "(default 12 GiB: a v5e's 16 GiB minus runtime "
-                         "slack)")
-    ap.add_argument("--lb-engine", choices=["mosaic", "ep"], default=None,
-                    help="line-buffer march engine: 'mosaic' = pallas_call "
-                         "auto-pipeline (hardware-proven; final flush step "
-                         "re-fetches one block per pass), 'ep' = explicit "
-                         "emit_pipeline whose copy-in skips unchanged block "
-                         "indices (exactly one HBM read per cell); also via "
-                         "SODA_LB_ENGINE env")
-    ap.add_argument("--compile-cache", type=str, default=None,
-                    help="persistent XLA compilation cache directory")
+    ap.add_argument("--hbm-budget", type=int, default=None,
+                    help="device memory budget (bytes) for --host-tile "
+                         "auto; default: the device's reported limit less "
+                         "a quarter for XLA's temporaries "
+                         "(utils/device.py). Required where the device "
+                         "reports none (CPU)")
     ap.add_argument("--unroll-iterate", type=int, nargs="?", const=0,
                     default=None, metavar="N",
                     help="unroll N temporal sweeps into chained stage "
                          "copies (the reference's iterate implementation); "
                          "no N = unroll fully. Enables exact shrinking "
-                         "extents and the line-buffer march for iterate "
-                         "programs")
+                         "extents for iterate programs")
     ap.add_argument("--tcse", action="store_true",
                     help="computation-reuse rewrite (DAC'20 tcse analog): "
                          "hoist shifted repeated partial sums into stages; "
@@ -177,9 +158,6 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--xocl-header", type=str, default=None, metavar="FILE")
     ap.add_argument("--profile", type=str, default=None, metavar="DIR",
                     help="write a jax.profiler trace of --run/--benchmark")
-    ap.add_argument("--pallas-driver", type=str, default=None, metavar="FILE")
-    ap.add_argument("--dump-plan", type=str, nargs="?", const="-",
-                    default=None, metavar="FILE")
     ap.add_argument("--report", action="store_true")
     ap.add_argument("--run", action="store_true")
     ap.add_argument("--benchmark", action="store_true")
@@ -203,13 +181,24 @@ def _overrides(args) -> dict:
     return ov
 
 
+def _hbm_budget(args) -> int:
+    from ..utils.device import hbm_budget
+
+    budget = args.hbm_budget or hbm_budget()
+    if budget is None:
+        raise SystemExit(
+            "--host-tile auto needs --hbm-budget: the device reports no "
+            "memory limit")
+    return budget
+
+
 def _host_tiles(program, grid_shape, args) -> tuple[int, ...]:
     from ..parallel.host_tile import choose_host_tiles, normalize_tiles
     if args.host_tile == "auto":
-        # under --mesh each tile runs sharded, so the HBM budget is per
+        # under --mesh each tile runs sharded, so the budget is per
         # DEVICE: size tiles to the per-shard footprint (mesh-size× larger)
         mesh_shape = _parse_mesh(args.mesh)[0] if args.mesh else None
-        tiles = choose_host_tiles(program, grid_shape, args.hbm_budget,
+        tiles = choose_host_tiles(program, grid_shape, _hbm_budget(args),
                                   args.host_tile_sweeps,
                                   mesh_shape=mesh_shape)
         logger.info("--host-tile auto -> %s", "x".join(map(str, tiles)))
@@ -252,35 +241,34 @@ def _random_inputs(program, grid_shape, seed):
     return ins, ps
 
 
-_DRIVER_TEMPLATE = '''#!/usr/bin/env python
-"""Auto-generated by soda_tpu: standalone Pallas driver for {name!r}."""
-import numpy as np
-from soda_tpu.frontend.parser import parse
-from soda_tpu.backend import pallas as pallas_backend
+def _verify(program, outs, gold, grid_shape) -> bool:
+    """Oracle check with the gates of utils/testing.py: integers bit-exact,
+    floats at the program's tolerance, the border-invalid rim excluded.
+    Prints one line per output with its rule and max |diff|."""
+    from ..utils.testing import interior, output_tolerance
 
-SODA_SRC = {src!r}
-GRID_SHAPE = {grid_shape!r}
-
-program = parse(SODA_SRC)
-
-def run(inputs, params=None, **kw):
-    return pallas_backend.run(program, inputs, params,
-                              grid_shape=GRID_SHAPE, **kw)
-
-if __name__ == "__main__":
-    rng = np.random.default_rng(0)
-    ins = {{}}
-    for n in program.input_names:
-        t = program.tensors[n].type
-        ins[n] = (rng.standard_normal(GRID_SHAPE).astype(t.np_dtype())
-                  if t.is_float else
-                  rng.integers(0, 255, GRID_SHAPE).astype(t.np_dtype()))
-    ps = {{p.name: rng.standard_normal(p.shape).astype(p.type.np_dtype())
-          for p in program.params.values()}}
-    outs = run(ins, ps)
-    for k, v in outs.items():
-        print(k, v.shape, v.dtype, float(np.asarray(v, dtype=np.float64).sum()))
-'''
+    rim = program.valid_rim()
+    ok = True
+    for k in gold:
+        a, b = interior(np.asarray(outs[k]), rim), interior(gold[k], rim)
+        if a.size == 0:
+            # np.allclose on empty arrays is vacuously True — refuse to
+            # claim PASS without comparing anything
+            raise SystemExit(
+                f"grid too small to verify: valid rim {rim} leaves "
+                f"no interior for output {k!r} on {grid_shape}")
+        tol = output_tolerance(program, k)
+        if tol is None:
+            good = np.array_equal(a, b)
+            rule = f"bit-exact, {np.count_nonzero(a != b)} cells differ"
+        else:
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            good = np.allclose(a, b, rtol=tol, atol=tol)
+            rule = f"rtol=atol={tol:g}, max |diff| {np.abs(a - b).max()}"
+        print(f"  {k}: {rule}: {'ok' if good else 'MISMATCH'}")
+        ok = ok and good
+    print("verification vs NumPy oracle:", "PASS" if ok else "FAIL")
+    return ok
 
 
 def main(argv=None) -> int:
@@ -291,17 +279,13 @@ def main(argv=None) -> int:
         format="%(levelname)s %(name)s: %(message)s")
 
     from ..frontend.parser import parse_file
-    from ..plan.planner import plan as make_plan
-    from ..utils.report import analyze
+    from ..utils.compile_cache import enable_compile_cache
+    from ..utils.report import analyze, compile_seconds
 
-    if args.compile_cache:
-        import jax
-        jax.config.update("jax_compilation_cache_dir", args.compile_cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-    if args.lb_engine:
-        from ..utils.config import set_lb_engine
-        set_lb_engine(args.lb_engine)  # before planning: models traffic too
+    enable_compile_cache()
+    if args.link_model:
+        from ..parallel.mesh import set_link_model
+        set_link_model(args.link_model)
 
     program = parse_file(args.soda_src, overrides=_overrides(args))
     updates_per_cell = 1
@@ -314,9 +298,9 @@ def main(argv=None) -> int:
             factor = 1
         if factor >= 8:
             logger.warning(
-                "unroll factor %d creates a %d-deep stage chain; Mosaic "
-                "compile time grows steeply beyond ~4 (see TODO.md)",
-                factor, factor * len(program.stage_order()))
+                "unroll factor %d creates a %d-deep stage chain; compile "
+                "time grows with it", factor,
+                factor * len(program.stage_order()))
         program = unroll_iterate(program, factor)
         updates_per_cell = factor
     if args.tcse:
@@ -338,7 +322,8 @@ def main(argv=None) -> int:
                          normalize_tiles(grid_shape,
                                          _parse_int_list(args.host_tile)))
             nf, ts = choose_sweeps_per_pass(
-                program, grid_shape, tiles_arg, args.hbm_budget,
+                program, grid_shape, tiles_arg,
+                _hbm_budget(args) if tiles_arg is None else None,
                 mesh_shape=mesh_shape)
             args.host_tile_sweeps = nf
             if args.host_tile == "auto":
@@ -346,98 +331,78 @@ def main(argv=None) -> int:
                 args.host_tile = ",".join(map(str, ts))
         elif args.host_tile_sweeps is not None:
             args.host_tile_sweeps = int(args.host_tile_sweeps)
-        # plan (and report) the PER-TILE kernel at the halo-extended
-        # tile shape — the full-grid plan would describe an execution
-        # that never runs (and may not even fit HBM, which is the point
-        # of the flag)
         from ..parallel.host_tile import plan_host_tiling
         host_tiling = plan_host_tiling(
             program, grid_shape, _host_tiles(program, grid_shape, args),
             args.host_tile_sweeps)
-        _t, _h, ext_shape, _nt, nf, _passes, _ov = host_tiling
-        the_plan = make_plan(
-            program, ext_shape, vmem_budget=args.vmem_budget,
-            sweeps=args.sweeps,
-            iterate=None if nf == max(program.iterate, 1) else nf,
-            block_override=args.block, updates_per_cell=updates_per_cell)
-    else:
-        the_plan = make_plan(
-            program, grid_shape, vmem_budget=args.vmem_budget,
-            sweeps=args.sweeps, block_override=args.block,
-            updates_per_cell=updates_per_cell)
+    elif not args.mesh and args.backend == "xla":
         # whole-grid footprint sanity: inputs + outputs + a working copy
-        # vs the device budget — a grid that cannot fit HBM should point
-        # at the host-tiling path instead of OOMing at runtime
-        import math as _math
-        cells = _math.prod(grid_shape)
-        foot = 2 * cells * sum(
+        # vs the device budget — a grid that cannot fit should point at
+        # the host-tiling path instead of failing for memory at run time
+        from ..utils.device import hbm_budget
+        budget = args.hbm_budget or hbm_budget()
+        foot = 2 * math.prod(grid_shape) * sum(
             program.tensors[n].type.tpu_storage_bytes
             for n in program.input_names + program.output_names)
-        if foot > args.hbm_budget and not args.mesh:
+        if budget is not None and foot > budget:
             logger.warning(
-                "grid %s needs ~%.1f GiB of HBM (budget %.1f GiB): a "
-                "single-chip run will likely OOM — use --host-tile auto "
-                "(sequential overlapping tiles) or --mesh",
-                grid_shape, foot / 2**30, args.hbm_budget / 2**30)
-    logger.info("%s", the_plan.describe())
+                "grid %s needs ~%.1f GiB of device memory (budget %.1f "
+                "GiB): a single-device run will likely fail — use "
+                "--host-tile auto (sequential overlapping tiles) or --mesh",
+                grid_shape, foot / 2**30, budget / 2**30)
 
     did_something = False
 
-    if args.dump_plan is not None:
-        did_something = True
-        j = json.dumps(the_plan.to_json(), indent=2)
-        if args.dump_plan == "-":
-            print(j)
-        else:
-            with open(args.dump_plan, "w") as f:
-                f.write(j)
-
     if args.report:
         did_something = True
-        print(analyze(the_plan, program=program).pretty())
+        # host tiling compiles the PER-TILE program at the halo-extended
+        # tile shape and pass depth — that is what runs
+        shape, nf = grid_shape, None
+        if host_tiling is not None:
+            shape, nf = host_tiling[2], host_tiling[4]
+        csec = (compile_seconds(program, shape, nf)
+                if args.backend == "xla" and not args.mesh else None)
+        rep = analyze(program, grid_shape, updates_per_cell, csec)
+        print(rep.pretty())
         # flag-compat honesty: knobs accepted for reference-CLI parity that
-        # have no behavioral meaning on TPU (the planner/VPU subsume them)
+        # have no behavioral meaning here (XLA subsumes them)
         inert = []
         if program.unroll_factor > 1:
             inert.append(f"unroll factor {program.unroll_factor} "
-                         "(subsumed by 8x128 VPU vectorization)")
+                         "(vectorization is XLA's)")
         if program.burst_width:
             inert.append(f"burst width {program.burst_width} "
-                         "(subsumed by Mosaic DMA pipelining)")
+                         "(memory transfers are XLA's)")
         if any(t.dram != (1,) for t in program.tensors.values()):
-            inert.append("dram channel lists (single HBM on TPU)")
+            inert.append("dram channel lists (one device memory)")
         if program.cluster and program.cluster != "none":
             inert.append(f"cluster {program.cluster}")
         for line in inert:
             print(f"  accepted-inert: {line}")
         if host_tiling is not None:
             tiles, halos, ext, nt, nf, passes, ov = host_tiling
-            rep = analyze(the_plan, program=program)
             print(f"  host tiling: {'x'.join(map(str, nt))} tiles of "
                   f"{'x'.join(map(str, tiles))} (+halo -> "
                   f"{'x'.join(map(str, ext))}), {passes} pass(es) x {nf} "
                   f"sweep(s); read amplification {ov:.3f}x per pass "
-                  f"(halo recompute, as in the reference host); kernel "
-                  f"analysis above is PER TILE at the extended shape; "
-                  f"effective {rep.bytes_per_cell_update * ov:.2f} "
-                  f"B/cell-update = per-tile x amplification "
-                  f"({100 * rep.roofline_fraction / ov:.0f}% of roofline)")
+                  f"(halo recompute, as in the reference host); effective "
+                  f"ideal {rep.ideal_bytes_per_cell_update * ov:.3f} "
+                  f"B/cell-update = ideal x amplification")
             if args.mesh:
                 from ..parallel.host_tile import model_mesh_exchange
                 sizes, _names, _links = _parse_mesh(args.mesh)
                 xbytes, shard = model_mesh_exchange(
                     program, ext, sizes, None, nf)
-                import math as _m
-                hbm_per_dev = _m.prod(ext) * sum(
+                per_dev = math.prod(ext) * sum(
                     program.tensors[n].type.tpu_storage_bytes
-                    for n in program.input_names) / _m.prod(sizes)
+                    for n in program.input_names) / math.prod(sizes)
                 xh = (f"{xbytes / 2**20:.1f} MiB" if xbytes >= 2**20
                       else f"{xbytes / 2**10:.1f} KiB")
                 print(f"  mesh per tile: shards of "
                       f"{'x'.join(map(str, shard))} over "
-                      f"{'x'.join(map(str, sizes))} devices; modeled ICI "
+                      f"{'x'.join(map(str, sizes))} devices; modeled "
                       f"halo exchange {xh}/device/pass "
-                      f"({xbytes / max(hbm_per_dev, 1) * 100:.2f}% of the "
+                      f"({xbytes / max(per_dev, 1) * 100:.2f}% of the "
                       f"shard's state bytes; cadence-invariant total — "
                       f"see parallel/host_tile.model_mesh_exchange)")
 
@@ -447,8 +412,8 @@ def main(argv=None) -> int:
         src = cpp.generate(program, grid_shape)
         for path, banner in ((args.cpp_golden, None),
                              (args.xocl_kernel,
-                              "// --xocl-kernel compatibility artifact: the TPU\n"
-                              "// rebuild has no HLS kernel; this is the golden\n"
+                              "// --xocl-kernel compatibility artifact: this\n"
+                              "// compiler has no HLS kernel; this is the golden\n"
                               "// loop nest with identical semantics.\n"),
                              (args.xocl_host, None)):
             if path:
@@ -470,24 +435,14 @@ def main(argv=None) -> int:
             f.write("\n".join(lines) + "\n")
         print(f"wrote header: {args.xocl_header}")
 
-    if args.pallas_driver:
-        did_something = True
-        import pathlib
-        src = pathlib.Path(args.soda_src).read_text()
-        with open(args.pallas_driver, "w") as f:
-            f.write(_DRIVER_TEMPLATE.format(
-                name=program.name, src=src, grid_shape=tuple(grid_shape)))
-        print(f"wrote Pallas driver: {args.pallas_driver}")
-
     if args.run or args.benchmark:
         did_something = True
         if args.benchmark and (args.mesh or args.host_tile
                                or args.backend == "numpy"):
             # reject from argv BEFORE the (possibly hours-long) run
             raise SystemExit(
-                "--benchmark supports --backend pallas|xla (got "
-                f"{'mesh' if args.mesh else 'host-tile' if args.host_tile else args.backend}); "
-                "run the single-chip backend you want timed")
+                "--benchmark times the single-device xla backend (got "
+                f"{'mesh' if args.mesh else 'host-tile' if args.host_tile else args.backend})")
         ins, ps = _random_inputs(program, grid_shape, args.seed)
         from ..interp import numpy_interp
 
@@ -503,43 +458,25 @@ def main(argv=None) -> int:
             mesh_kw = {}
             if args.mesh:
                 # host tiles x mesh shards: each tile runs sharded over
-                # the mesh (grids larger than the whole pod's HBM)
-                from ..parallel.mesh import make_mesh, set_link_model
-                if args.link_model:
-                    set_link_model(args.link_model)
+                # the mesh (grids larger than all devices' memory)
+                from ..parallel.mesh import make_mesh
                 sizes, names, links = _parse_mesh(args.mesh)
                 mesh_kw = dict(
                     mesh=make_mesh(sizes, names), link_classes=links,
                     sweeps_per_exchange=_parse_cadence(
                         args.sweeps_per_exchange, names),
-                    local_backend=args.mesh_local_backend,
                     overlap=args.mesh_overlap)
             outs = run_host_tiled(
                 program, ins, ps, tiles=_host_tiles(program, grid_shape, args),
-                sweeps_per_pass=args.host_tile_sweeps,
-                interpret=True if args.interpret else "auto",
-                vmem_budget=args.vmem_budget, sweeps=args.sweeps,
-                block_override=args.block, **mesh_kw)
+                sweeps_per_pass=args.host_tile_sweeps, **mesh_kw)
         elif args.mesh:
-            from ..parallel.mesh import run_sharded, set_link_model
-            if args.link_model:
-                set_link_model(args.link_model)
+            from ..parallel.mesh import run_sharded
             sizes, names, links = _parse_mesh(args.mesh)
             spe = _parse_cadence(args.sweeps_per_exchange, names)
             outs = run_sharded(program, ins, ps, axis_sizes=sizes,
                                axis_names=names, link_classes=links,
                                sweeps_per_exchange=spe,
-                               local_backend=args.mesh_local_backend,
-                               overlap=args.mesh_overlap,
-                               # same auto-detection as --backend pallas:
-                               # off-TPU hosts run the Mosaic interpreter
-                               interpret=True if args.interpret else "auto")
-        elif args.backend == "pallas":
-            from ..backend import pallas as pb
-            # --interpret forces the interpreter; otherwise let the backend
-            # auto-detect (off-TPU hosts interpret, TPU compiles)
-            outs = pb.run(program, ins, ps, the_plan=the_plan,
-                          interpret=True if args.interpret else "auto")
+                               overlap=args.mesh_overlap)
         elif args.backend == "xla":
             from ..backend import xla as xb
             outs = xb.run(program, ins, ps)
@@ -547,133 +484,45 @@ def main(argv=None) -> int:
             outs = numpy_interp.run(program, ins, ps)
         wall = time.perf_counter() - t0
         print(f"executed {program.name} on {grid_shape} "
-              f"({args.backend}{' mesh' if args.mesh else ''}): {wall:.3f}s "
+              f"({args.backend}{' mesh' if args.mesh else ''}"
+              f"{' host-tiled' if args.host_tile else ''}): {wall:.3f}s "
               f"(incl. compile)")
 
         if args.run and args.backend != "numpy":
             gold = numpy_interp.run(program, ins, ps)
-            rim = program.valid_rim()
-            # half programs: the oracle rounds per op, the TPU computes
-            # f32 between f16-rounded stores (docs/SEMANTICS.md) — gate
-            # at f16 scale instead of f32's 1e-4
-            half = any(t.type.is_float and t.type.width == 16
-                       for t in program.tensors.values())
-            tol = 2e-2 if half else 1e-4
-            ok = True
-            for k in gold:
-                int_out = not program.tensors[k].type.is_float
-                # integer outputs compare BIT-EXACT (a float64 cast would
-                # hide dropped low-limb carries beyond 2^53 on the wide
-                # path — ADVICE r2); floats keep the tolerance gate
-                if int_out:
-                    a, b = np.asarray(outs[k]), np.asarray(gold[k])
-                else:
-                    a = outs[k].astype(np.float64)
-                    b = gold[k].astype(np.float64)
-                if rim:
-                    sl = tuple(slice(rim, -rim) for _ in range(a.ndim))
-                    a, b = a[sl], b[sl]
-                if a.size == 0:
-                    # np.allclose on empty arrays is vacuously True —
-                    # refuse to claim PASS without comparing anything
-                    raise SystemExit(
-                        f"grid too small to verify: valid rim {rim} leaves "
-                        f"no interior for output {k!r} on {grid_shape}")
-                good = (np.array_equal(a, b) if int_out
-                        else np.allclose(a, b, rtol=tol, atol=tol))
-                if not good:
-                    ok = False
-                    d = np.abs(a.astype(np.float64) - b.astype(np.float64))
-                    print(f"MISMATCH {k}: max diff {d.max()}")
-            print("verification vs NumPy oracle:", "PASS" if ok else "FAIL")
-            if not ok:
+            if not _verify(program, outs, gold, grid_shape):
                 return 1
 
         if args.benchmark:
-            import jax
-            import jax.numpy as jnp
-
-            # benchmark the backend that was actually selected (ADVICE r1:
-            # silently timing Pallas under --backend xla misreports)
-            # flag-compat rejected up front (top of the run/benchmark
-            # block), before any execution
-            from ..interp.wide64 import program_is_wide
-
-            wide_bench = program_is_wide(program)
-            if args.backend == "pallas":
-                from ..backend import pallas as pb
-                fn = jax.jit(pb.build_fn(
-                    program, the_plan=the_plan,
-                    interpret=True if args.interpret else "auto"))
-            else:
-                from ..backend import xla as xb
-                fn = jax.jit(xb.build_fn(program))
-            if wide_bench and args.backend == "pallas":
-                # wide programs jit end-to-end over W pair carriers: split
-                # the 64-bit inputs/params into plane pairs at the boundary
-                from ..backend.pallas import to_wide_params, to_wide_values
-                jins = to_wide_values(program, ins)
-                jps = to_wide_params(program, ps)
-            else:
-                jins = {k: jnp.asarray(v) for k, v in ins.items()}
-                jps = {k: jnp.asarray(v) for k, v in ps.items()}
-            compiled = fn.lower(jins, jps).compile()
-            out = compiled(jins, jps)
-            jax.block_until_ready(out)
-            reps = 5
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                out = compiled(jins, jps)
-            jax.block_until_ready(out)
-            dt = (time.perf_counter() - t0) / reps
-            # each sweep of an unroll_iterate'd program performs
-            # updates_per_cell cell-updates (ADVICE-class fix)
-            updates = (math_prod(grid_shape) * max(program.iterate, 1)
-                       * updates_per_cell)
-            rep = analyze(the_plan, program=program)
-            print(f"benchmark ({args.backend}): {dt*1e3:.3f} ms/call  "
-                  f"{updates/dt/1e9:.2f} GCell-updates/s (wall-clock; "
-                  f"UNRELIABLE on timing-emulated devices)")
-            roof_name = (f"{rep.sweeps_total}-sweep"
-                         if rep.sweeps_total > 1 else "single-sweep")
-            print(f"analytic:  {rep.bytes_per_cell_update:.3f} B/update -> "
-                  f"{rep.est_gcells_per_s_v5e:.1f} GCell-updates/s at v5e "
-                  f"819 GB/s ({100*rep.roofline_fraction:.0f}% of the "
-                  f"{roof_name} roofline)")
-            # independent cross-check: XLA cost-model bytes for the whole
-            # jitted program.  The model counts each custom-call operand's
-            # FULL buffer (it cannot see BlockSpec strip windows), so for
-            # multi-operand strips kernels it overcounts aliased reads; for
-            # single-operand plans (windows/linebuffer) it is tight, and a
-            # hidden host-side pad/copy always pushes it up by +2 B/update.
-            from ..utils.report import xla_bytes_per_update
-
-            xbpc = xla_bytes_per_update(compiled, updates)
-            if xbpc is not None:
-                drift = xbpc / rep.bytes_per_cell_update - 1.0
-                strips = any(g["strategy"] == "strips"
-                             for g in rep.plan["groups"])
-                note = ("coarse: counts whole buffers per aliased strip "
-                        "operand" if strips else
-                        "tight bound for single-operand plans")
-                print(f"xla cost model: {xbpc:.3f} B/update "
-                      f"({'+' if drift >= 0 else ''}{100*drift:.1f}% vs "
-                      f"analytic; {note})")
+            _benchmark(program, grid_shape, ins, ps, updates_per_cell)
 
         if profile_ctx is not None:
             profile_ctx.__exit__(None, None, None)
             print(f"profiler trace written to {args.profile}")
 
     if not did_something:
-        print(analyze(the_plan, program=program).pretty())
+        print(analyze(program, grid_shape, updates_per_cell).pretty())
     return 0
 
 
-def math_prod(t):
-    out = 1
-    for x in t:
-        out *= x
-    return out
+def _benchmark(program, grid_shape, ins, ps, updates_per_cell) -> None:
+    """Time the compiled XLA program (warm, block_until_ready) and name
+    the device it ran on."""
+    import jax
+
+    from ..utils.report import xla_bytes_per_update
+    from ..utils.timing import time_program
+
+    r = time_program(program, grid_shape, ins, ps, updates_per_cell)
+    dev = jax.devices()[0]
+    print(f"benchmark (xla on {dev.platform} {dev.device_kind!r}, "
+          f"{len(jax.devices())} device(s)): {r['seconds']*1e3:.3f} ms/call, "
+          f"{r['gcell_updates_per_s']:.2f} GCell-updates/s, "
+          f"{r['ideal_gb_per_s']:.1f} GB/s of ideal traffic; compile "
+          f"{r['compile_s']:.2f}s")
+    xbpc = xla_bytes_per_update(r["compiled"], r["updates"])
+    if xbpc is not None:
+        print(f"xla cost model: {xbpc:.3f} B/update")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,25 @@
-"""`.soda` parser: lark grammar -> raw statement objects -> StencilProgram.
+"""`.soda` parser: hand-written recursive descent -> raw statement objects
+-> StencilProgram.
 
 Analog of the reference's src/sodac frontend dispatch + src/soda/grammar.py
 textX semantic classes (SodaProgram, InputStmt, LocalStmt, OutputStmt,
 ParamStmt, directive stmts) — reconstructed per SURVEY.md §2.1/§2.4 (empty
 reference mount; no file:line cites possible).
+
+Surface (one statement per line, `#` starts a comment):
+
+    kernel: NAME            burst width: INT        iterate: INT
+    unroll factor: INT      border: NAME            cluster: NAME
+    input [dram INT(,INT)*] TYPE: NAME(TILE, ...)         TILE = INT | *
+    local TYPE: NAME(SINT, ...) = EXPR
+    output [dram INT(,INT)*] TYPE: NAME(SINT, ...) = EXPR
+    param TYPE(, dup INT | , partition NAME [factor = INT])*: NAME([INT])*
+
+Expressions use C precedence (?: || && | ^ & ==/!= relational shifts
+additive multiplicative unary) over casts `TYPE(e)`, applications
+`name(e, ...)`, param subscripts `name[e]...`, bare names and numbers.
+Statement keywords are also legal tensor names (the canonical blur example
+names its input tensor `input`).
 
 Ref-vs-call disambiguation: `t(0, 1)` parses as a generic Apply; the builder
 resolves it to a tensor Ref when `t` is a declared tensor (offsets must fold
@@ -14,28 +30,12 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
+import re
 from typing import Any
-
-import lark
 
 from ..ir import expr as ir
 from ..ir.program import Param, StencilProgram, Tensor
 from ..ir.types import ScalarType
-
-_GRAMMAR_PATH = pathlib.Path(__file__).with_name("grammar.lark")
-_parser: lark.Lark | None = None
-
-
-def _get_parser() -> lark.Lark:
-    global _parser
-    if _parser is None:
-        _parser = lark.Lark(
-            _GRAMMAR_PATH.read_text(),
-            parser="earley",
-            lexer="dynamic_complete",
-            maybe_placeholders=False,
-        )
-    return _parser
 
 
 # ---- raw statements ----------------------------------------------------------
@@ -92,179 +92,246 @@ class RawProgram:
     params: list[RawParam] = dataclasses.field(default_factory=list)
 
 
-class _Xform(lark.Transformer):
-    """Lark tree -> RawProgram pieces / Expr nodes."""
+# ---- lexer -------------------------------------------------------------------
 
-    # -- leaves
-    def name(self, toks):
-        return str(toks[0])
+_TOKEN_RE = re.compile(r"""
+    (?P<ws>[ \t]+|\#[^\n]*)
+  | (?P<nl>(?:\r?\n)+)
+  | (?P<hex>0[xX][0-9a-fA-F]+)
+  | (?P<float>(?:(?:\d+\.\d*|\.\d+)(?:[eE][+-]?\d+)?|\d+[eE][+-]?\d+)[fF]?|\d+[fF])
+  | (?P<int>\d+)
+  | (?P<name>[A-Za-z_][A-Za-z0-9_]*)
+  | (?P<op>\|\||&&|==|!=|<=|>=|<<|>>|[-+*/%<>&|^!~?:(),\[\]=])
+""", re.VERBOSE)
 
-    def type(self, toks):
-        return ScalarType.parse(str(toks[0]))
+_TYPE_RE = re.compile(r"u?int[0-9]+|float(?:16|32|64)?|double|half")
 
-    def int_number(self, toks):
-        return ir.Const(int(toks[0]))
+# binary operators by precedence level, loosest first (C order)
+_BINARY_LEVELS = (
+    ("||",), ("&&",), ("|",), ("^",), ("&",), ("==", "!="),
+    ("<", ">", "<=", ">="), ("<<", ">>"), ("+", "-"), ("*", "/", "%"),
+)
 
-    def hex_number(self, toks):
-        return ir.Const(int(str(toks[0]), 16))
 
-    def float_number(self, toks):
-        s = str(toks[0]).rstrip("fF")
-        return ir.Const(float(s))
+@dataclasses.dataclass(frozen=True)
+class _Tok:
+    kind: str  # nl | hex | float | int | name | op | eof
+    text: str
+    pos: int
 
-    def sint_plain(self, toks):
-        return int(toks[0])
 
-    def sint_neg(self, toks):
-        return -int(toks[0])
+class _SyntaxError(Exception):
+    def __init__(self, pos: int):
+        super().__init__(pos)
+        self.pos = pos
 
-    def sint_pos(self, toks):
-        return int(toks[0])
+
+def _tokenize(text: str) -> list[_Tok]:
+    toks = []
+    pos = 0
+    while pos < len(text):
+        m = _TOKEN_RE.match(text, pos)
+        if m is None:
+            raise _SyntaxError(pos)
+        if m.lastgroup != "ws":
+            toks.append(_Tok(m.lastgroup, m.group(), pos))
+        pos = m.end()
+    toks.append(_Tok("eof", "", len(text)))
+    return toks
+
+
+class _Parser:
+    """Recursive descent over the token list; one method per rule."""
+
+    def __init__(self, text: str):
+        self.toks = _tokenize(text)
+        self.i = 0
+
+    # -- token helpers
+    @property
+    def tok(self) -> _Tok:
+        return self.toks[self.i]
+
+    def fail(self):
+        raise _SyntaxError(self.tok.pos)
+
+    def at(self, text: str) -> bool:
+        return self.tok.kind in ("op", "name") and self.tok.text == text
+
+    def accept(self, text: str) -> bool:
+        if self.at(text):
+            self.i += 1
+            return True
+        return False
+
+    def expect(self, text: str) -> None:
+        if not self.accept(text):
+            self.fail()
+
+    def take(self, kind: str) -> str:
+        if self.tok.kind != kind:
+            self.fail()
+        self.i += 1
+        return self.toks[self.i - 1].text
+
+    def name(self) -> str:
+        return self.take("name")
+
+    def integer(self) -> int:
+        return int(self.take("int"))
+
+    def signed_int(self) -> int:
+        if self.accept("-"):
+            return -self.integer()
+        self.accept("+")
+        return self.integer()
+
+    def type(self) -> ScalarType:
+        if self.tok.kind != "name" or not _TYPE_RE.fullmatch(self.tok.text):
+            self.fail()
+        return ScalarType.parse(self.take("name"))
+
+    # -- program
+    def program(self) -> RawProgram:
+        prog = RawProgram()
+        while True:
+            while self.tok.kind == "nl":
+                self.i += 1
+            if self.tok.kind == "eof":
+                return prog
+            self.statement(prog)
+            if self.tok.kind not in ("nl", "eof"):
+                self.fail()
+
+    def statement(self, prog: RawProgram) -> None:
+        kw = self.name()
+        if kw in ("kernel", "border", "cluster"):
+            self.expect(":")
+            setattr(prog, "name" if kw == "kernel" else kw, self.name())
+        elif kw in ("burst", "unroll"):
+            self.expect("width" if kw == "burst" else "factor")
+            self.expect(":")
+            setattr(prog, "burst_width" if kw == "burst" else "unroll_factor",
+                    self.integer())
+        elif kw == "iterate":
+            self.expect(":")
+            prog.iterate = self.integer()
+        elif kw == "input":
+            dram = self.dram_spec()
+            typ = self.type()
+            self.expect(":")
+            name = self.name()
+            self.expect("(")
+            tiles = [self.tile_dim()]
+            while self.accept(","):
+                tiles.append(self.tile_dim())
+            self.expect(")")
+            prog.inputs.append(RawInput(typ, name, tuple(tiles), dram))
+        elif kw in ("local", "output"):
+            dram = self.dram_spec() if kw == "output" else (1,)
+            typ = self.type()
+            self.expect(":")
+            name = self.name()
+            self.expect("(")
+            anchor = [self.signed_int()]
+            while self.accept(","):
+                anchor.append(self.signed_int())
+            self.expect(")")
+            self.expect("=")
+            prog.stages.append(RawStage(kw, typ, name, tuple(anchor),
+                                        self.expr(), dram))
+        elif kw == "param":
+            typ = self.type()
+            dup = part = None
+            while self.accept(","):
+                if self.accept("dup"):
+                    dup = self.integer()
+                else:
+                    self.expect("partition")
+                    part = self.name()
+                    if self.accept("factor"):
+                        self.expect("=")
+                        part += f":{self.integer()}"
+            self.expect(":")
+            name = self.name()
+            shape = []
+            while self.accept("["):
+                shape.append(self.integer())
+                self.expect("]")
+            prog.params.append(RawParam(typ, name, tuple(shape), dup, part))
+        else:
+            self.i -= 1
+            self.fail()
+
+    def dram_spec(self) -> tuple[int, ...]:
+        if not self.accept("dram"):
+            return (1,)
+        banks = [self.integer()]
+        while self.accept(","):
+            banks.append(self.integer())
+        return tuple(banks)
+
+    def tile_dim(self) -> int | None:
+        return None if self.accept("*") else self.integer()
 
     # -- expressions
-    def select(self, c):
-        return ir.Select(c[0], c[1], c[2])
+    def expr(self) -> Any:
+        cond = self.binary(0)
+        if not self.accept("?"):
+            return cond
+        on_true = self.expr()
+        self.expect(":")
+        return ir.Select(cond, on_true, self.expr())
 
-    def _bin(op):
-        def f(self, c):
-            return ir.BinOp(op, c[0], c[1])
-        return f
+    def binary(self, level: int) -> Any:
+        if level == len(_BINARY_LEVELS):
+            return self.unary()
+        lhs = self.binary(level + 1)
+        while self.tok.kind == "op" and self.tok.text in _BINARY_LEVELS[level]:
+            op = self.take("op")
+            lhs = ir.BinOp(op, lhs, self.binary(level + 1))
+        return lhs
 
-    lor = _bin("||"); land = _bin("&&")
-    bor = _bin("|"); bxor = _bin("^"); band = _bin("&")
-    eq = _bin("=="); ne = _bin("!=")
-    lt = _bin("<"); gt = _bin(">"); le = _bin("<="); ge = _bin(">=")
-    shl = _bin("<<"); shr = _bin(">>")
-    add = _bin("+"); sub = _bin("-")
-    mul = _bin("*"); div = _bin("/"); mod = _bin("%")
-    del _bin
+    def unary(self) -> Any:
+        if self.tok.kind == "op" and self.tok.text in ("-", "+", "!", "~"):
+            op = self.take("op")
+            return ir.UnOp(op, self.unary())
+        return self.atom()
 
-    def neg(self, c):
-        return ir.UnOp("-", c[0])
-
-    def pos(self, c):
-        return ir.UnOp("+", c[0])
-
-    def lnot(self, c):
-        return ir.UnOp("!", c[0])
-
-    def bnot(self, c):
-        return ir.UnOp("~", c[0])
-
-    def cast(self, c):
-        return ir.Cast(ScalarType.parse(str(c[0])), c[1])
-
-    def apply(self, c):
-        return _Apply(c[0], tuple(c[1:]))
-
-    def param_ref(self, c):
-        return ("param_ref", c[0], tuple(c[1:]))
-
-    def var(self, c):
-        return ("var", c[0])
-
-    # -- statement pieces
-    def lhs_ref(self, c):
-        return (c[0], tuple(c[1:]))
-
-    def dram_spec(self, c):
-        return tuple(int(t) for t in c)
-
-    def subscript(self, c):
-        return int(c[0])
-
-    def tile_fixed(self, c):
-        return int(c[0])
-
-    def tile_star(self, c):
-        return None
-
-    def tile_sizes(self, c):
-        return tuple(c)
-
-    def attr_dup(self, c):
-        return ("dup", int(c[0]))
-
-    def attr_partition(self, c):
-        return ("partition", str(c[0]) + (f":{c[1]}" if len(c) > 1 else ""))
-
-    # -- statements
-    def kernel_stmt(self, c):
-        return ("kernel", c[0])
-
-    def burst_stmt(self, c):
-        return ("burst", int(c[0]))
-
-    def iterate_stmt(self, c):
-        return ("iterate", int(c[0]))
-
-    def unroll_stmt(self, c):
-        return ("unroll", int(c[0]))
-
-    def border_stmt(self, c):
-        return ("border", c[0])
-
-    def cluster_stmt(self, c):
-        return ("cluster", c[0])
-
-    def input_stmt(self, c):
-        if len(c) == 4:
-            dram, typ, name, tiles = c
-        else:
-            typ, name, tiles = c
-            dram = (1,)
-        return ("input", RawInput(typ, name, tiles, dram))
-
-    def local_stmt(self, c):
-        typ, (name, anchor), expr = c
-        return ("stage", RawStage("local", typ, name, anchor, expr, (1,)))
-
-    def output_stmt(self, c):
-        if len(c) == 4:
-            dram, typ, (name, anchor), expr = c
-        else:
-            typ, (name, anchor), expr = c
-            dram = (1,)
-        return ("stage", RawStage("output", typ, name, anchor, expr, dram))
-
-    def param_stmt(self, c):
-        typ = c[0]
-        attrs = [x for x in c[1:] if isinstance(x, tuple) and x[0] in ("dup", "partition")]
-        rest = [x for x in c[1:] if not (isinstance(x, tuple) and x[0] in ("dup", "partition"))]
-        name = rest[0]
-        shape = tuple(int(s) for s in rest[1:])
-        dup = next((v for k, v in attrs if k == "dup"), None)
-        part = next((v for k, v in attrs if k == "partition"), None)
-        return ("param", RawParam(typ, name, shape, dup, part))
-
-    def start(self, c):
-        return list(c)
+    def atom(self) -> Any:
+        kind, text = self.tok.kind, self.tok.text
+        if kind == "int":
+            return ir.Const(int(self.take("int")))
+        if kind == "hex":
+            return ir.Const(int(self.take("hex"), 16))
+        if kind == "float":
+            return ir.Const(float(self.take("float").rstrip("fF")))
+        if self.accept("("):
+            e = self.expr()
+            self.expect(")")
+            return e
+        name = self.name()
+        if self.accept("("):
+            args = [self.expr()]
+            while self.accept(","):
+                args.append(self.expr())
+            self.expect(")")
+            if _TYPE_RE.fullmatch(text):
+                if len(args) != 1:
+                    self.fail()
+                return ir.Cast(ScalarType.parse(text), args[0])
+            return _Apply(name, tuple(args))
+        if self.at("["):
+            idxs = []
+            while self.accept("["):
+                idxs.append(self.expr())
+                self.expect("]")
+            return ("param_ref", name, tuple(idxs))
+        return ("var", name)
 
 
 def parse_raw(text: str) -> RawProgram:
-    tree = _get_parser().parse(text)
-    stmts = _Xform().transform(tree)
-    prog = RawProgram()
-    for kind, val in stmts:
-        if kind == "kernel":
-            prog.name = val
-        elif kind == "burst":
-            prog.burst_width = val
-        elif kind == "iterate":
-            prog.iterate = val
-        elif kind == "unroll":
-            prog.unroll_factor = val
-        elif kind == "border":
-            prog.border = val
-        elif kind == "cluster":
-            prog.cluster = val
-        elif kind == "input":
-            prog.inputs.append(val)
-        elif kind == "stage":
-            prog.stages.append(val)
-        elif kind == "param":
-            prog.params.append(val)
-    return prog
+    return _Parser(text).program()
 
 
 # ---- build: raw -> StencilProgram --------------------------------------------
@@ -384,26 +451,20 @@ def build_program(raw: RawProgram, overrides: dict | None = None) -> StencilProg
 
 def parse(text: str, overrides: dict | None = None) -> StencilProgram:
     """Parse `.soda` source text into a validated StencilProgram."""
-    import lark
-
     try:
         raw = parse_raw(text)
-    except lark.exceptions.VisitError as e:
-        # unwrap semantic errors raised inside tree transforms (e.g. the
-        # unsupported-integer-width rejection) so callers/tests see the
-        # typed ValueError, not lark's wrapper
-        if isinstance(e.orig_exc, ValueError):
-            raise e.orig_exc from None
-        raise
-    except lark.exceptions.UnexpectedInput as e:
+    except _SyntaxError as e:
         lines = text.splitlines() or [""]
-        # UnexpectedEOF (truncated input) carries line = column = -1:
-        # point at the end of the source instead
-        ln = e.line if 0 < e.line <= len(lines) else len(lines)
-        col = e.column if e.column > 0 else len(lines[ln - 1]) + 1
+        ln = text.count("\n", 0, e.pos) + 1
+        if ln > len(lines):
+            # truncated input: point at the end of the source
+            ln = len(lines)
+            col = len(lines[-1]) + 1
+        else:
+            col = e.pos - (text.rfind("\n", 0, e.pos) + 1) + 1
         raise ValueError(
             f".soda syntax error at line {ln}, column {col}:\n"
-            f"  {lines[ln - 1]}\n  {' ' * max(col - 1, 0)}^") from e
+            f"  {lines[ln - 1]}\n  {' ' * max(col - 1, 0)}^") from None
     return build_program(raw, overrides)
 
 

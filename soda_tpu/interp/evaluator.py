@@ -1,21 +1,21 @@
 """Shared typed expression evaluator with C-like semantics.
 
-One evaluator serves every execution path — the NumPy oracle, the pure-XLA
-(jnp) backend, and the Pallas kernel body — parameterized by the array
-namespace (`xp`) and a tap callback that materializes tensor refs.  This is
-the TPU-native replacement for the reference's per-backend expression
-printers (src/soda/codegen/*): instead of printing C++ per backend, the same
+One evaluator serves every execution path — the NumPy oracle, the XLA
+(jnp) backend and the mesh's per-shard compute — parameterized by the
+array namespace (`xp`) and a tap callback that materializes tensor refs.
+This replaces the reference's per-backend expression printers (src/soda/codegen/*): instead of printing C++ per backend, the same
 IR walk *builds the computation* in whichever array language is in scope.
 
 Integer semantics (see ir/types.py for the rationale):
-  * arithmetic in a wide accumulator (int64 for NumPy oracle, int32 on TPU);
+  * arithmetic in a wide accumulator (int64 for the NumPy oracle, int32
+    on the XLA path for programs of 32-bit types);
   * `/` and `%` follow C: truncation toward zero, remainder takes the
     dividend's sign (numpy floor-division is corrected);
   * values are masked/sign-extended to the declared width ONLY at explicit
     casts and at stage stores — matching ap_int's exact width-growth
     behavior for all practical widths.
-Float semantics: float literals are float32 (TPU-native; documented
-deviation from C's double literals), computation in the promoted width, no
+Float semantics: float literals are float32 (documented deviation from
+C's double literals), computation in the promoted width, no
 reassociation (the IR tree is evaluated exactly as written).
 """
 
@@ -38,11 +38,12 @@ class EvalContext:
     xp: Any                                   # numpy or jax.numpy
     tap: Callable[[str, tuple[int, ...]], Any]  # materialize Ref
     params: dict[str, Any]
-    int_width: int = 64                        # 64 for oracle, 32 for TPU
-    # TPU in-kernel wide mode (interp/wide64.WideXP shim): 64-bit values
-    # ride paired-32-bit carriers, but NARROW types keep the regular TPU
-    # semantics (f32 compute for half, int32 stage storage)
-    tpu_wide: bool = False
+    int_width: int = 64                        # 64 oracle, 32 XLA narrow
+    # pair-carrier wide mode (interp/wide64.WideXP shim, the mesh's 64-bit
+    # path): 64-bit values ride paired-32-bit carriers, but NARROW types
+    # keep the 32-bit path's semantics (f32 compute for half, int32 stage
+    # storage)
+    pair_wide: bool = False
 
     def int_dtype(self, signed: bool = True):
         if self.int_width == 128:
@@ -57,15 +58,15 @@ class EvalContext:
         EXCEPT unsigned types at/above the accumulator width, which ride an
         unsigned carrier so value-dependent ops (/ % < >>) see true values.
         (C integer promotion: narrower unsigned types promote to signed int,
-        so only full-width unsigned stays unsigned — uint32 on the TPU path,
-        uint64 on the 64-bit oracle path.)"""
+        so only full-width unsigned stays unsigned — uint32 on the 32-bit
+        path, uint64 on the 64-bit paths.)"""
         unsigned = t.is_int and t.kind == "uint" and t.width >= self.int_width
         return self.int_dtype(signed=not unsigned)
 
     def float_dtype(self, width: int):
-        if self.int_width == 32:  # TPU path: no f64
+        if self.int_width == 32:  # 32-bit path: f32 compute
             return self.xp.float32
-        if self.tpu_wide and width <= 32:  # TPU wide: half computes as f32
+        if self.pair_wide and width <= 32:  # half computes as f32
             return self.xp.float32
         return {16: self.xp.float16, 32: self.xp.float32, 64: self.xp.float64}[width]
 
@@ -152,7 +153,7 @@ def _trunc_float_to_int(ctx: EvalContext, v, t: ScalarType):
     v = xp.trunc(xp.asarray(v))
     if (t.is_int and t.kind == "uint"
             and ctx.int_width == 32 and t.width >= 32):
-        # TPU path float->uint32: direct unsigned convert (XLA defines it),
+        # 32-bit path float->uint32: direct unsigned convert (XLA defines it),
         # keeping values in [2^31, 2^32) exact — the signed int32 carrier
         # would clamp them
         v = v.astype(ctx.acc_of(t))
@@ -179,24 +180,6 @@ _FLOAT_FNS = {
 # two-arg float fns: both operands promoted to the common float type
 _FLOAT_FNS2 = {"atan2": "arctan2", "copysign": "copysign",
                "hypot": "hypot"}
-
-# fns Mosaic cannot lower (hardware-probed): on f32 jnp paths these use
-# the composed implementations in interp/mathfns.py so the SAME formula
-# runs compiled-on-TPU and interpreted-on-CPU.  numpy (the oracle) keeps
-# native fns; f64 jnp (the CPU-only x64 XLA mode) keeps native fns; the
-# WideXP shim routes through its own methods (DS or composed).
-_MOSAIC_MISSING = {"atan", "asin", "acos", "atan2", "sinh", "cosh",
-                   "expm1"}
-
-
-def _use_composed(ctx: EvalContext, fn: str, t: ScalarType) -> bool:
-    import numpy as _np
-
-    xp = ctx.xp
-    return (fn in _MOSAIC_MISSING and xp is not _np
-            and not hasattr(xp, "base")  # WideXP dispatches itself
-            and t.width <= 32)
-
 
 def eval_expr(e: ir.Expr, ctx: EvalContext) -> tuple[Any, ScalarType]:
     """Evaluate to (array_value, dsl_type).  Integer values are carried in
@@ -366,19 +349,11 @@ def eval_expr(e: ir.Expr, ctx: EvalContext) -> tuple[Any, ScalarType]:
         if e.fn in _FLOAT_FNS:
             t = promote(vals[0][1], FLOAT32)
             v = _coerce_to(ctx, *vals[0], t)
-            if _use_composed(ctx, e.fn, t):
-                from .mathfns import F32_IMPLS
-
-                return F32_IMPLS[e.fn](xp, v), t
             return getattr(xp, _FLOAT_FNS[e.fn])(v), t
         if e.fn in _FLOAT_FNS2:
             t = promote(promote(vals[0][1], vals[1][1]), FLOAT32)
             a = _coerce_to(ctx, *vals[0], t)
             b = _coerce_to(ctx, *vals[1], t)
-            if _use_composed(ctx, e.fn, t):
-                from .mathfns import F32_IMPLS2
-
-                return F32_IMPLS2[e.fn](xp, a, b), t
             return getattr(xp, _FLOAT_FNS2[e.fn])(a, b), t
         raise ValueError(f"unknown function {e.fn}")
 
@@ -428,13 +403,13 @@ def _storage_dtype(ctx: EvalContext, t: ScalarType):
                     64: xp.float64}[t.width]
         return t.np_dtype()
     if ctx.int_width == 32:
-        # TPU path computes uniformly in int32 (masking at stores preserves
-        # semantics for widths <= 16; full-range uint32 is documented as
-        # unsupported on the TPU path)
+        # the 32-bit path computes uniformly in int32 (masking at stores
+        # preserves semantics for widths <= 16; full-range uint32 is
+        # documented as unsupported on the 32-bit path)
         return xp.int32
-    if ctx.tpu_wide:
-        # in-kernel wide mode: 64-bit stays paired; narrow stages keep
-        # the regular TPU storage (int32/float32)
+    if ctx.pair_wide:
+        # pair-carrier wide mode: 64-bit stays paired; narrow stages keep
+        # the 32-bit path's storage (int32/float32)
         if t.is_float:
             return xp.float64 if t.width == 64 else xp.float32
         if t.width > 32:

@@ -1,12 +1,11 @@
-"""Composed f32 implementations of the C-math functions Mosaic cannot
-lower (hardware-probed this round: atan/asin/acos/atan2/sinh/cosh/expm1
-raise "Unimplemented primitive in Pallas TPU lowering"; log10/log1p/
-trunc/copysign/hypot lower fine).
+"""Composed f32 implementations of atan/asin/acos/atan2/sinh/cosh/expm1
+for the pair-carrier namespace (interp/wide64.WideXP), which evaluates its
+narrow f32 values with them and seeds its double-single asin from
+`f32_asin`.
 
-Built exclusively from primitives Mosaic DOES lower (sqrt, exp, div,
-where, abs, copysign, signbit, isinf, comparisons), so the same code
-serves the compiled TPU kernel path AND the CPU interpret path — the two
-evaluate bit-identically.  Accuracy ~1e-8 relative (beyond f32's 2^-24
+Built from elementary primitives only (sqrt, exp, div, where, abs,
+copysign, signbit, isinf, comparisons), so the same code evaluates
+bit-identically on every platform.  Accuracy ~1e-8 relative (beyond f32's 2^-24
 ulp) on the primary domains; the NumPy oracle keeps native numpy fns and
 the cross-backend gates absorb the ulp-level difference.
 
@@ -118,7 +117,7 @@ def f32_expm1(xp, x):
     return xp.where(xp.abs(x) < np.float32(0.5), small, big)
 
 
-# DSL fn name -> composed impl, for the f32 jnp paths (Mosaic gap)
+# DSL fn name -> composed impl
 F32_IMPLS = {
     "atan": f32_atan, "asin": f32_asin, "acos": f32_acos,
     "sinh": f32_sinh, "cosh": f32_cosh, "expm1": f32_expm1,

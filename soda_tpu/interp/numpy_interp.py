@@ -1,11 +1,12 @@
 """NumPy golden-model interpreter.
 
-TPU-native analog of the reference's generated host-side golden model: the
+Analog of the reference's generated host-side golden model: the
 generated OpenCL host embeds a naive C++ loop nest over the full grid and
 verifies kernel output element-wise (reference: src/soda/codegen/xilinx/
 host.py per SURVEY.md §2.1/§4; reconstructed — empty reference mount).
 Here the oracle is a standalone interpreter over the IR, so every backend
-(XLA, Pallas, sharded, C++ golden runner) checks against the same semantics.
+(XLA, host-tiled, sharded, C++ golden runner) checks against the same
+semantics.
 
 Border convention: `border: ignore` — out-of-grid taps read zeros, and the
 rim of width radius×sweeps is semantically invalid; comparisons may exclude

@@ -2,12 +2,12 @@
 XLA wide-int engine above 64 bits.
 
 Reference parity (SURVEY.md §2.4, reconstructed — empty mount): the
-reference's `ap_int<N>`/`ap_uint<N>` are arbitrary-width.  This TPU rebuild
-supports 1..64-bit ints everywhere (32-bit native, 33..64 as pairs —
-interp/wide64.py) and 65..128-bit ints on the NumPy-oracle and XLA
-backends via FOUR 32-bit limbs (this module); the Pallas kernel and mesh
-paths reject >64 loudly (quad-plane carriers are future work; the typed
-error names `--backend xla`).  Widths above 128 remain rejected at parse
+reference's `ap_int<N>`/`ap_uint<N>` are arbitrary-width.  This compiler
+supports 1..64-bit ints everywhere (32-bit, and 33..64 as native int64 on
+the XLA path or pairs on the mesh — interp/wide64.py) and 65..128-bit ints
+on the NumPy-oracle and XLA backends (whole grid and host tiles) via FOUR
+32-bit limbs (this module); the mesh rejects >64 loudly (quad-plane
+carriers are future work; the typed error names `--backend xla`).  Widths above 128 remain rejected at parse
 time (PARITY.md deviation).
 
 Design mirrors interp/wide64: a wrapped value class (`V`: rep "p" plain

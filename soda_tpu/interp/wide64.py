@@ -1,30 +1,28 @@
-"""64-bit arithmetic as pairs of 32-bit values — the TPU in-kernel wide mode.
+"""64-bit arithmetic as pairs of 32-bit values — the mesh's 64-bit mode.
 
-Mosaic (the Pallas TPU compiler) is a 32-bit machine: there are no i64/f64
-registers.  This module implements a small wrapped array language that
-carries
+The mesh path (parallel/mesh.py) shards 64-bit tensors as pairs of 32-bit
+planes and evaluates them with this module, a small wrapped array
+language that carries
 
   * ``int64``/``uint64`` as two uint32 limbs (lo, hi) with exact
     two's-complement semantics — add/sub/mul/compare/shift/bitwise and a
     64-step restoring long division, all BIT-EXACT vs the int64 oracle;
   * ``double`` as a double-single (hi, lo) pair of float32 with
     error-free transforms (Knuth two_sum, Dekker split/two_prod): +,-,*,/
-    and sqrt carry ~2^-47 relative accuracy (same class as the XLA
-    backend's f64-emulation wide mode, docs/SEMANTICS.md); the C-math
+    and sqrt carry ~2^-47 relative accuracy (docs/SEMANTICS.md); the C-math
     surface is DS-accurate too (~1e-12), including sin/cos/tan over the
     ENTIRE finite range via an integer Payne–Hanek reduction (_ph_reduce).
 
 The evaluator (interp/evaluator.py) is already parameterized by an array
 namespace ``xp``; ``WideXP(jnp)`` plugs in as that namespace so the SAME
-typed walk that serves NumPy/XLA/Pallas now emits paired-limb code inside
-Pallas kernels.  Values flow as ``W`` wrappers: rep "p" = plain 32-bit
+typed walk that serves NumPy and XLA emits paired-limb code per shard.  Values flow as ``W`` wrappers: rep "p" = plain 32-bit
 array, rep "i"/"u" = int64/uint64 limb pair, rep "d" = double-single.
 ``W.astype`` accepts ordinary numpy dtypes — np.int64/np.uint64/np.float64
 select the pair reps — so the evaluator's dtype plumbing works unchanged.
 
-Reference parity: gives `ap_int<33..64>`, `ap_uint<33..64>` and `double`
-(SURVEY.md §2.4 type surface) a genuine in-kernel TPU compute path; the
-XLA backend's x64 wide mode remains the whole-program alternative.
+The XLA backend runs the same types natively under x64; the pair
+carriers remain only on the mesh path, and ROADMAP.md (Design 1) plans
+their removal there too.
 """
 
 from __future__ import annotations
@@ -335,8 +333,8 @@ def _pair_neg(a: W) -> W:
 
 
 def _mul32_wide(xp, a, b):
-    """32x32 -> (lo32, hi32) via 16-bit half products (no widening mul on
-    the VPU)."""
+    """32x32 -> (lo32, hi32) via 16-bit half products (no widening
+    multiply in 32-bit lanes)."""
     a0 = a & np.uint32(0xFFFF)
     a1 = a >> np.uint32(16)
     b0 = b & np.uint32(0xFFFF)
@@ -498,7 +496,7 @@ def _split(xp, a):
     and lo = a - hi exact (same-exponent-range subtraction), so the
     two_prod error term is IDENTICAL to the rounding split's.
 
-    0-d values (DS scalar constants) keep the arithmetic form: Mosaic
+    0-d values (DS scalar constants) keep the arithmetic form: the scalar
     rejects scalar bitcasts, and constants fold at trace time where no
     graph rewrite applies."""
     if getattr(a, "ndim", 0) == 0 and xp is not np:
@@ -760,7 +758,7 @@ _TRIG_EXACT_LIMIT = np.float32(1.2e7)
 # decomposition x = ±m·2^(e-150): the per-limb product m·u needs only the
 # 131-bit window u = (2/π)·2^(e-150) mod 8 of a precomputed (2/π)·2^320
 # integer, extracted by a data-dependent shift (u32 word selects + vector
-# shifts — all Mosaic-lowerable; no gather).  m < 2^24 rides _mul32_wide.
+# shifts — all plain vector ops; no gather).  m < 2^24 rides _mul32_wide.
 # Per-limb truncation < 2^-103 absolute in the mod-8 product; both limbs
 # of a DS value are accumulated in INTEGER form before the quadrant is
 # extracted, so near-total cancellation between the limbs costs nothing.
@@ -874,7 +872,7 @@ def _ph_reduce(a: W):
         cc = (s < cc).astype(np.uint32)
         aw.append(s)
     # |fr|·2^128 (words 0..3; word 4 is 0 for |fr| ≤ 2^127) → DS, top-down
-    # in exact u16-half terms (i32-routed converts: Mosaic has no u32↔f32)
+    # in exact u16-half terms (i32-routed converts, no u32↔f32)
     acc_hi = xp.zeros_like(a.a)
     acc_lo = xp.zeros_like(a.a)
     for j in (3, 2, 1, 0):
@@ -995,7 +993,7 @@ def _ds_sincos(a: W) -> tuple[W, W]:
     # Cody–Waite keeps the small range: its error is RELATIVE at every
     # magnitude, while the fixed-point path resolves only 2^-103 absolute.
     # 0-d traced values (DS scalar constants fold at trace time) keep the
-    # old f32-accuracy fallback: Mosaic rejects the SCALAR bitcast
+    # old f32-accuracy fallback: a SCALAR bitcast is avoided
     # _ph_limb131 needs — merged at the end via f32_fallback.
     f32_fallback = getattr(a.a, "ndim", 0) == 0 and xp is not np
     if f32_fallback:
@@ -1185,7 +1183,7 @@ def _ds_asin_newton(y: W) -> W:
     from . import mathfns
 
     xp = y.xp
-    # composed f32 asin seed: Mosaic has no native arcsin lowering
+    # composed f32 asin seed (interp/mathfns.py)
     t0 = mathfns.f32_asin(xp, xp.minimum(xp.maximum(
         y.a + y.b, np.float32(-1.0)), np.float32(1.0)))
     T0 = W("d", t0, xp.zeros_like(t0), xp)
@@ -1321,7 +1319,7 @@ def _pair_to_ds(a: W) -> W:
     c16 = np.uint32(0xFFFF)
 
     def _chunk_f32(u):
-        # 16-bit chunk -> f32 via int32: Mosaic has no u32<->f32 casts
+        # 16-bit chunk -> f32 via int32: no u32<->f32 casts
         # (hardware-verified failure mode); the chunk fits i32 exactly
         return u.astype(np.int32).astype(np.float32)
 
@@ -1344,7 +1342,7 @@ def _pair_to_ds(a: W) -> W:
 
 def _f32_int_to_u32(xp, f):
     """Exact u32 of an integral f32 value in [0, 2^32): split at 2^16 so
-    each chunk fits int32 (Mosaic has no f32<->u32 casts; f32->i32 of
+    each chunk fits int32 (no f32<->u32 casts; f32->i32 of
     sub-2^16 chunks is exact)."""
     two16 = np.float32(65536.0)
     top = xp.floor(f / two16)
@@ -1399,7 +1397,7 @@ def _plain_to_pair(v: W, rep: str) -> W:
 class WideXP:
     """numpy-like namespace over W values, backed by `base` (numpy or
     jax.numpy).  Exposes exactly the function surface the shared evaluator
-    and the Pallas group evaluator use."""
+    uses."""
 
     int64 = np.int64
     uint64 = np.uint64
@@ -1613,8 +1611,7 @@ class WideXP:
     # round-3 continuation C-math surface: DS-accurate single-arg fns
     # (the __getattr__ f32 fallback would lose the lo limb).  rep-"p"
     # (narrow f32) values use the COMPOSED implementations from
-    # interp/mathfns for the fns Mosaic cannot lower natively — same
-    # formula on compiled-TPU and interpret paths.
+    # interp/mathfns — the same formula on every platform.
 
     def _p_or_ds(self, a, ds_fn, composed):
         from . import mathfns
@@ -1645,12 +1642,12 @@ class WideXP:
     def log10(self, a):
         if isinstance(a, W) and a.rep == "d":
             return _ds_log10(a)
-        return self._plain_fn("log10", a)  # Mosaic lowers log10
+        return self._plain_fn("log10", a)
 
     def log1p(self, a):
         if isinstance(a, W) and a.rep == "d":
             return _ds_log1p(a)
-        return self._plain_fn("log1p", a)  # Mosaic lowers log1p
+        return self._plain_fn("log1p", a)
 
     # two-arg fns: the __getattr__ fallback cannot lift the second W arg
 
@@ -1724,7 +1721,7 @@ class WideXP:
 
 def split_planes(x: np.ndarray):
     """Host: one 64-bit numpy array -> (lo, hi) int32-container planes
-    (uint32 reinterpreted as int32 for TPU transfer neutrality)."""
+    (uint32 reinterpreted as int32 for transfer neutrality)."""
     if x.dtype == np.float64:
         hi = x.astype(np.float32)
         lo = (x - hi.astype(np.float64)).astype(np.float32)
@@ -1747,7 +1744,7 @@ def merge_planes(lo, hi, dtype) -> np.ndarray:
 
 
 def is_wide(t) -> bool:
-    """True for DSL types that need the pair carrier on the TPU path."""
+    """True for DSL types that need the pair carrier on the mesh path."""
     return (t.is_int and t.width > 32) or (t.is_float and t.width == 64)
 
 
@@ -1786,10 +1783,10 @@ def unwrap_planes(t, w: W):
 
 
 def program_is_wide(program) -> bool:
-    """True when USER-declared tensors or params need pair carriers
-    in-kernel.  Synthetic (compiler-generated) int64 partial sums in
-    otherwise-32-bit programs keep the documented int32 TPU behavior and
-    do NOT trigger the wide path."""
+    """True when USER-declared tensors or params need pair carriers.
+    Synthetic (compiler-generated) int64 partial sums in otherwise-32-bit
+    programs keep the documented int32 behavior and do NOT trigger the
+    wide path."""
     return any(is_wide(t.type) and not t.synthetic
                for t in program.tensors.values()) \
         or any(is_wide(p.type) for p in program.params.values())

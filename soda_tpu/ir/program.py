@@ -5,11 +5,11 @@ Plays the role of the reference's src/soda/core.py `Stencil` object
 dataflow graph) — reconstructed per SURVEY.md §2.1/§3(b); the reference
 mount is empty, so no file:line cites are possible.
 
-Differences from the reference, by design (TPU-first):
-  * No FIFO/module planning here — the reuse-buffer math (window spans,
-    halo arithmetic) lives in plan/ as a VMEM tiling planner instead.
+Differences from the reference, by design:
+  * No FIFO/module planning — XLA fuses the stages of a sweep; the span
+    and halo arithmetic here sizes host tiles and mesh halos.
   * Offsets are kept relative (not linearized against a tile size): the
-    Pallas backend consumes N-D window extents directly.
+    backends consume N-D shifts directly.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ class Param:
     """A scalar or array parameter (conv weights etc.).
 
     `dup` is accepted for surface compatibility with the reference DSL
-    (replication count for FPGA banking); it does not affect TPU execution.
+    (replication count for FPGA banking); it does not affect execution.
     """
 
     name: str
@@ -54,7 +54,7 @@ class Tensor:
     is_output: bool = False
     # compiler-generated stage (e.g. a tcse partial sum): exempt from the
     # backend >32-bit rejections — its int64 typing exists only for oracle
-    # exactness and the TPU paths compute it at int32, identical to the
+    # exactness and the 32-bit paths compute it at int32, identical to the
     # unrewritten program
     synthetic: bool = False
 

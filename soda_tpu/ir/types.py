@@ -4,16 +4,15 @@ Mirrors the type surface of the reference DSL (uint<N>/int<N> of arbitrary
 width — HLS ``ap_uint<N>``/``ap_int<N>`` — plus float/double/half; reference:
 haoda.ir types, reconstructed per SURVEY.md §0/§2.4).
 
-TPU-native semantics decision (documented, differs from bit-exact ap_int
-width growth): integer expressions are evaluated in a wide accumulator
-(int64 in the NumPy/C++ oracles, int32 on the TPU compute path) and masked
-to the declared width only at stores and explicit casts.  HLS ap_int
-arithmetic grows widths exactly (add -> w+1, mul -> w1+w2), so exact-width
-evaluation never overflows mid-expression; a 64-bit accumulator reproduces
-that behavior for all widths <= 32 used in practice.  The TPU path uses
-int32 (TPU-native word) and is validated against the int64 oracle by the
-test suite; programs whose intermediates exceed int32 are rejected loudly
-by the planner when detectable.
+Semantics decision (documented, differs from bit-exact ap_int width
+growth): integer expressions are evaluated in a wide accumulator (int64
+in the NumPy/C++ oracles, int32 on the XLA path for programs of 32-bit
+types) and masked to the declared width only at stores and explicit
+casts.  HLS ap_int arithmetic grows widths exactly (add -> w+1, mul ->
+w1+w2), so exact-width evaluation never overflows mid-expression; a
+64-bit accumulator reproduces that behavior for all widths <= 32 used in
+practice.  The 32-bit path is validated against the int64 oracle by the
+test suite; programs with >32-bit types run the XLA path in x64.
 """
 
 from __future__ import annotations
@@ -54,17 +53,15 @@ class ScalarType:
         kind = "uint" if m.group(1) == "uint" else "int"
         width = int(m.group(2))
         if not 1 <= width <= 128:
-            # The reference's ap_[u]int<N> is arbitrary-width; this TPU
-            # rebuild supports 1..128 (1..32 native, 33..64 as exact
-            # paired-32-bit carriers — interp/wide64.py, 65..128 as
+            # The reference's ap_[u]int<N> is arbitrary-width; this
+            # compiler supports 1..128 (1..64 native, 65..128 as
             # quad-limb carriers on the oracle/XLA paths —
             # interp/wide128.py).  Wider would need more limbs; deviation
             # recorded in PARITY.md.
             raise ValueError(
                 f"unsupported integer width {width} in {s!r}: this "
-                f"TPU backend supports int1..int128/uint1..uint128 "
-                f"(33..64-bit via exact 32-bit limb pairs everywhere; "
-                f"65..128-bit via quad-limb carriers on the NumPy/XLA "
+                f"compiler supports int1..int128/uint1..uint128 "
+                f"(65..128-bit via quad-limb carriers on the NumPy/XLA "
                 f"backends); widths above 128 are not implemented "
                 f"(PARITY.md deviation)")
         return ScalarType(kind, width)
@@ -112,35 +109,11 @@ class ScalarType:
             return np.dtype({8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}[w])
         return np.dtype({8: np.int8, 16: np.int16, 32: np.int32, 64: np.int64}[w])
 
-    def jnp_dtype(self):
-        """TPU compute dtype.  float64 is unsupported on TPU -> float32
-        compute with a loud planner note; ints compute in int32."""
-        import jax.numpy as jnp
-
-        if self.kind == "float":
-            return {16: jnp.float16, 32: jnp.float32, 64: jnp.float32}[self.width]
-        return jnp.int32 if self.is_signed else jnp.uint32
-
-    def tpu_storage_dtype(self):
-        """HBM storage dtype on the TPU path: narrow ints live in the
-        smallest native container (8/16/32-bit — matching the reference's
-        1-2 B/cell DRAM line rates); compute always widens to int32/float32
-        in-kernel."""
-        import jax.numpy as jnp
-
-        if self.kind == "float":
-            return jnp.float32  # half computes/stores as f32 on TPU (doc'd)
-        if self.width <= 8:
-            return jnp.uint8 if self.kind == "uint" else jnp.int8
-        if self.width <= 16:
-            return jnp.uint16 if self.kind == "uint" else jnp.int16
-        return jnp.uint32 if self.kind == "uint" else jnp.int32
-
     @property
     def tpu_storage_bytes(self) -> int:
+        """Bytes per cell of the storage dtype (16 for the >64-bit
+        quad-limb carriers)."""
         if self.kind == "float":
-            # half streams as uint16 f16 bit patterns on the Pallas path
-            # (in-kernel decode/encode — backend/pallas.py f16_bits_*)
             if self.width == 16:
                 return 2
             return 8 if self.width == 64 else 4
@@ -151,13 +124,6 @@ class ScalarType:
         if self.width <= 32:
             return 4
         return 8 if self.width <= 64 else 16
-
-    @property
-    def sublane_quantum(self) -> int:
-        """Min sublane tile of the TPU storage dtype (8 for 32-bit,
-        16 for 16-bit, 32 for 8-bit containers; 64-bit rides pairs of
-        32-bit planes, each tiling at 8)."""
-        return {1: 32, 2: 16, 4: 8, 8: 8, 16: 8}[self.tpu_storage_bytes]
 
     # ---- C++ mapping (golden runner) --------------------------------------
 

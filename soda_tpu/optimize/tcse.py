@@ -7,7 +7,7 @@ at shifted offsets (convolution sum trees with coefficients), hoists them
 into synthetic `local` stages, and lets the reuse buffers carry partial
 sums, selecting the decomposition with a DP/ILP (PuLP) search.
 
-This TPU-native version generalizes the rewrite to WEIGHTED sums via exact
+This version generalizes the rewrite to WEIGHTED sums via exact
 polynomial factorization over the offset lattice:
 
   a flattened weighted sum  Σ_{o} w_o · x(o)  (w_o = constant / param
@@ -37,10 +37,9 @@ passes repeat to a fixed point (multi-level reuse), so e.g. (1,4,6,4,1)
 reaches the 4-add/0-mul binomial chain.  This exhaustive-per-level
 selection plays the role of the reference's PuLP ILP at stencil sizes.
 
-On TPU the "reuse buffer carrying partial sums" is simply the hoisted
-stage's VMEM block: the planner fuses T into its consumer with the right
-halo, so each partial sum is computed once per cell and read m times as
-shifted vector slices — identical dataflow to the reference's FIFO chains.
+Here the "reuse buffer carrying partial sums" is the hoisted stage's
+array: each partial sum is computed once per cell and read m times as
+shifted slices — the dataflow of the reference's FIFO chains.
 
 Numerical note: the rewrite REASSOCIATES the sum.  Exact for integer
 types — integer programs only accept integer factor coefficients, and
@@ -926,10 +925,10 @@ def apply(program: StencilProgram, max_passes: int = 10) -> StencilProgram:
                     # |coefficients| x parent bound): int32 when the true
                     # sum provably fits (then the hoisted store never
                     # wraps, and value-dependent consumers like `/` stay
-                    # exact); int64 otherwise — on such programs the TPU
-                    # Pallas path (int32 accumulators) could never compute
-                    # the unrewritten sum correctly either, and now rejects
-                    # loudly instead of wrapping.  Floats keep their width.
+                    # exact); int64 otherwise — on such programs the
+                    # 32-bit path (int32 accumulators) could never compute
+                    # the unrewritten sum correctly either.  Floats keep
+                    # their width.
                     parent = next(iter(ir.get_load_names(se)))
                     pt = tensors[parent].type
                     if pt.is_float or _is_minmax_tree(se):

@@ -4,10 +4,8 @@ copies — exactly the reference's implementation of `iterate`
 copies)", SURVEY.md §3(a); reconstructed — empty mount).
 
 The unrolled program is a plain single-sweep (or iterate/factor-sweep)
-multi-stage DAG, so every kernel strategy applies: the exact-extent
-evaluation computes each sweep copy at its minimal (shrinking) extent —
-less VPU overwork than the constant-extent fused loop — and the rank-3
-line-buffer march applies to iterate programs.
+multi-stage DAG, which XLA fuses as one sweep: `factor` updates per pass
+over device memory instead of one.
 
 Semantics: identical to running `factor` sweeps (same op order per sweep;
 the boundary rim differs only inside the invalid region, as any chained
@@ -25,8 +23,8 @@ def unroll_iterate(program: StencilProgram, factor: int | None = None
 
     Requires iterate > 1.  The feedback pair is first-input <-
     FIRST-declared output; with multiple outputs the intermediate sweeps'
-    copies of non-feedback outputs are dead stages (no consumer) and the
-    planner prunes them — exactly the reference's replication semantics.
+    copies of non-feedback outputs are dead stages (no consumer), which
+    XLA drops — exactly the reference's replication semantics.
     The result has iterate = program.iterate // factor."""
     it = max(program.iterate, 1)
     factor = it if factor is None else factor

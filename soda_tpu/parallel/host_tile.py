@@ -1,19 +1,17 @@
-"""Host-side sequential tiling: run grids LARGER THAN DEVICE HBM through
-one chip as a loop over overlapping tiles.
+"""Host-side sequential tiling: run grids LARGER THAN DEVICE MEMORY through
+one device as a loop over overlapping tiles.
 
-TPU-native replacement for the second half of the reference's generated
-host program (src/soda/codegen/xilinx/host.py per SURVEY.md §2.1
-host-codegen row, reconstructed — empty mount): the reference host splits
-an arbitrary full grid into `tile_size` tiles with overlapping halos and
-feeds them through the FPGA kernel sequentially, recomputing the overlap.
-`parallel/mesh.py` is the scale-OUT answer (shard over an ICI mesh); this
-module is the scale-UP answer on ONE device: the full grid lives in host
-RAM as numpy arrays, each tile is extended by a zero-filled halo, runs
-through the standard single-chip Pallas path (`backend.pallas.build_fn`
-— every strategy: line buffers, strips, trapezoid sweeps, wide pair
-carriers), and the tile interior is stitched back on the host.  Only
-tile + halo ever touches HBM, so the grid size is bounded by host RAM,
-not the 16 GiB of a v5e.
+Replacement for the second half of the reference's generated host program
+(src/soda/codegen/xilinx/host.py per SURVEY.md §2.1 host-codegen row,
+reconstructed — empty mount): the reference host splits an arbitrary full
+grid into `tile_size` tiles with overlapping halos and feeds them through
+the FPGA kernel sequentially, recomputing the overlap.  `parallel/mesh.py`
+is the scale-OUT answer (shard over a device mesh); this module is the
+scale-UP answer on ONE device: the full grid lives in host RAM as numpy
+arrays, each tile is extended by a zero-filled halo, runs through the
+compiled XLA path (`backend.xla.Runner`), and the tile interior is
+stitched back on the host.  Only tile + halo ever touches device memory,
+so the grid size is bounded by host RAM, not by the card.
 
 Correctness contract (same as the mesh path, docs/SEMANTICS.md):
 - halo width per tiled dim = per-sweep chain creep × sweeps_per_pass, so
@@ -31,7 +29,7 @@ Correctness contract (same as the mesh path, docs/SEMANTICS.md):
 Cost model (reported by `--report` when --host-tile is active): per pass
 each tile reads (T+2h)^d cells to produce T^d — the same halo-recompute
 overhead the reference host pays — and `passes = iterate / nf` passes
-each stream the full grid through PCIe+HBM once.
+each stream the full grid host -> device -> host once.
 """
 from __future__ import annotations
 
@@ -118,14 +116,14 @@ def _shard_ext_shape(program: StencilProgram, ext_shape, mesh_shape,
 
 def model_mesh_exchange(program: StencilProgram, ext_shape, mesh_shape,
                         mesh_dims, nf: int):
-    """Modeled ICI halo-exchange traffic for ONE mesh-sharded host tile
+    """Modeled halo-exchange traffic for ONE mesh-sharded host tile
     over one pass of `nf` sweeps: per device, each sharded axis moves
     creep-deep halo slabs totalling nf × r cells per side regardless of
     the exchange cadence (cadence k moves k·r-deep halos nf/k times —
     the product is cadence-invariant; only the latency count differs).
     Returns (per_device_bytes, shard_shape).  Exchanged payload = the
-    live state, i.e. the program inputs at their TPU storage widths
-    (wide tensors ride as two 32-bit planes = 8 B/cell)."""
+    live state, i.e. the program inputs at their storage widths
+    (storage widths; 64-bit tensors at 8 B/cell)."""
     if mesh_dims is None:
         mesh_dims = tuple(range(len(mesh_shape)))
     shard = _shard_ext_shape(program, ext_shape, mesh_shape, mesh_dims, nf)
@@ -198,11 +196,11 @@ def choose_host_tiles(program: StencilProgram, grid_shape,
                       iterate: int | None = None, mesh_shape=None,
                       mesh_dims=None) -> tuple[int, ...]:
     """Pick a tile shape whose device footprint fits `hbm_budget` bytes:
-    repeatedly halve the largest leading (non-lane) dim until the
-    estimated per-tile HBM footprint fits.  Footprint = every program
-    tensor at the halo-extended tile shape × 2 (double-buffered feedback
-    copies; wide tensors count their two 32-bit planes via the 8 B/cell
-    container).  With `mesh_shape` (the tile runs sharded — run_host_tiled
+    repeatedly halve the largest leading dim until the estimated per-tile
+    footprint fits.  Footprint = every program tensor at the
+    halo-extended tile shape in its XLA compute dtype (4 B/cell up to 32
+    bits, 8 for 64-bit, 16 for the quad-limb carriers) × 2 (the scan's
+    double-buffered feedback copies).  With `mesh_shape` (the tile runs sharded — run_host_tiled
     mesh composition), the budget is PER DEVICE: the footprint is taken at
     the per-shard shape including mesh exchange halos, so a whole-pod run
     auto-picks tiles mesh-size× larger than a single chip would."""
@@ -214,17 +212,16 @@ def choose_host_tiles(program: StencilProgram, grid_shape,
         if mesh_shape:
             ext = _shard_ext_shape(program, ext, mesh_shape, mesh_dims, nf)
         cells = math.prod(ext)
-        per_cell = 0
-        for t in program.tensors.values():
-            w = t.type.width
-            per_cell += 8 if w > 32 else (2 if w == 16 else
-                                          1 if w <= 8 else 4)
+        per_cell = sum(4 if t.type.width <= 32 else
+                       8 if t.type.width <= 64 else 16
+                       for t in program.tensors.values())
         return cells * per_cell * 2
 
     rank = program.rank
     while footprint(tiles) > hbm_budget:
-        # prefer cutting leading dims (lane-dim tiles break streaming
-        # efficiency); the lane dim is the LAST resort, floored at 256
+        # prefer cutting leading dims (the contiguous last dim keeps
+        # transfers and loads coalesced); it is the LAST resort, floored
+        # at 256
         cut = [i for i in range(rank - 1) if tiles[i] > 8] or (
             [rank - 1] if tiles[rank - 1] > 256 else [])
         if not cut:
@@ -240,35 +237,27 @@ def choose_host_tiles(program: StencilProgram, grid_shape,
 
 def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                    tiles, grid_shape=None, sweeps_per_pass=None,
-                   iterate=None, interpret="auto", jit=True,
-                   mesh=None, mesh_dims=None, sweeps_per_exchange=None,
-                   local_backend="xla", overlap=False, link_classes=None,
-                   **plan_kwargs) -> dict:
+                   iterate=None, mesh=None, mesh_dims=None,
+                   sweeps_per_exchange=None, overlap=False,
+                   link_classes=None) -> dict:
     """Execute `program` over a grid held in HOST memory by looping
-    overlapping tiles through the single-chip Pallas path.  Returns
-    numpy outputs in declared dtypes (same surface as pallas.run).
+    overlapping tiles through the compiled XLA path.  Returns numpy
+    outputs in declared dtypes (same surface as xla.run).
 
     With `mesh` (a jax.sharding.Mesh), each tile runs SHARDED over the
     mesh (`parallel/mesh.py` — ppermute halo exchange inside the tile):
-    the full 3-level decomposition for grids larger than the whole POD's
-    HBM — host tiles -> mesh shards -> VMEM blocks.  Stitched interiors
-    sit at least `creep × nf` inside their tile, outside the mesh
-    cadence's rim-deviation zone, so the contract is unchanged."""
+    the decomposition for grids larger than all the devices' memory
+    together — host tiles -> mesh shards.  Stitched interiors sit at
+    least `creep × nf` inside their tile, outside the mesh cadence's
+    rim-deviation zone, so the contract is unchanged."""
     import jax
     import jax.numpy as jnp
 
-    from ..backend import pallas as pb
+    from ..backend import xla
     from ..interp.wide64 import program_is_wide
-    from ..interp.wide128 import program_is_128
 
-    if program_is_128(program):
-        raise NotImplementedError(
-            f"program {program.name!r} uses >64-bit integers: host tiling "
-            "drives the Pallas kernel path (pair carriers, <=64); run "
-            "whole-grid with `--backend xla` (quad-limb carriers)")
     params = dict(params or {})
-    from ..backend.pallas import _check_io
-    _check_io(program, inputs, params)
+    xla.check_io(program, inputs, params)
     inputs = {k: np.asarray(v) for k, v in inputs.items()}
     if grid_shape is None:
         grid_shape = tuple(next(iter(inputs.values())).shape)
@@ -288,40 +277,36 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         "x".join(map(str, tiles)), "x".join(map(str, ext_shape)),
         passes, nf, overhead)
 
-    wide = program_is_wide(program)
-    # one fn for EVERY tile and pass: all tiles share ext_shape.
-    # iterate=None when the pass covers the whole iterate keeps the
-    # planner's AUTO fused-sweep selection (build_fn treats an explicit
-    # iterate as a full-fusion request); an explicit --sweeps becomes a
-    # pre-made plan (build_fn cannot take both iterate and sweeps)
-    it_arg = None if (iterate is None and nf == max(program.iterate, 1)) \
-        else nf
-    if plan_kwargs.get("sweeps") is None:
-        plan_kwargs.pop("sweeps", None)
+    # one executable for EVERY tile and pass: all tiles share ext_shape
     if mesh is not None:
-        # tiles run sharded over the mesh; the sharded fn owns its own
-        # wide plane-pair boundary and pad-to-shard of the ext shape
-        # (planner knobs like `sweeps` don't apply — local plans are
-        # made per shard)
         from .mesh import build_sharded_fn
+
         fn = build_sharded_fn(
             program, mesh, dims=mesh_dims, iterate=nf,
             sweeps_per_exchange=sweeps_per_exchange,
-            grid_shape=ext_shape, local_backend=local_backend,
-            interpret=interpret, overlap=overlap,
+            grid_shape=ext_shape, overlap=overlap,
             link_classes=link_classes)
-        if jit and not wide:
-            fn = jax.jit(fn)
+        if program_is_wide(program):
+            # the wide sharded fn splits/merges 64-bit planes on the host
+            # itself (numpy in, numpy out; its shard_map is jitted)
+            def dispatch(tile_in):
+                return fn(tile_in, params)
+        else:
+            jfn = jax.jit(fn)
+
+            def dispatch(tile_in):
+                return jfn({k: jnp.asarray(v) for k, v in tile_in.items()},
+                           params)
+
+        def fetch(outs):
+            return xla.finalize_outputs(program, outs)
     else:
-        # the planner snaps a requested `sweeps` (and its auto choice)
-        # to a divisor of the EFFECTIVE per-pass count via iterate=
-        fn = pb.build_fn(program, grid_shape=ext_shape, iterate=it_arg,
-                         interpret=interpret, jit_per_group="auto",
-                         **plan_kwargs)
-    if mesh is None and jit and not getattr(fn, "inner_jitted", False):
-        fn = jax.jit(fn)
-    wparams = pb.to_wide_params(program, params) if (wide and mesh is None) \
-        else params
+        runner = xla.Runner(program, iterate=nf)
+
+        def dispatch(tile_in):
+            return runner.dispatch(tile_in, params)
+
+        fetch = runner.fetch
 
     in_name = program.input_names[0]
     out0 = program.output_names[0]
@@ -331,16 +316,16 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         host_out = {
             n: np.empty(grid_shape, dtype=program.tensors[n].type.np_dtype())
             for n in program.output_names}
-        # two tiles in flight: fn() dispatches asynchronously, so tile
-        # k+1's host slicing + H2D transfer and kernel launch overlap
-        # with materializing tile k's outputs (finalize_outputs blocks on
-        # the device value) — the host-tiling analog of the reference
-        # host's overlapped DMA.  Bounds device memory at ~2 tiles.
+        # two tiles in flight: dispatch() returns before the device
+        # finishes, so tile k+1's host slicing, host-to-device transfer
+        # and launch overlap with fetching tile k's outputs — the
+        # host-tiling analog of the reference host's overlapped DMA.
+        # Bounds device memory at ~2 tiles.
         pending = None  # (dst, src, device outputs)
 
         def _flush(p):
             dst, src, douts = p
-            nouts = pb.finalize_outputs(program, douts)
+            nouts = fetch(douts)
             for n in program.output_names:
                 host_out[n][dst] = nouts[n][src]
 
@@ -352,15 +337,7 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
                     tuple(s - lo for s, (lo, _) in zip(starts, halos)),
                     ext_shape)
                 for n in program.input_names}
-            if wide:
-                # mesh: the sharded fn splits/merges 64-bit planes on the
-                # host itself (numpy in, numpy out)
-                outs = (fn(tile_in, params) if mesh is not None
-                        else fn(pb.to_wide_values(program, tile_in),
-                                wparams))
-            else:
-                outs = fn({k: jnp.asarray(v) for k, v in tile_in.items()},
-                          wparams)
+            outs = dispatch(tile_in)
             # stitch the tile interior (edge tiles: clip to the real grid)
             dst = tuple(
                 slice(s, min(s + t, n))
@@ -374,8 +351,8 @@ def run_host_tiled(program: StencilProgram, inputs, params=None, *,
         _flush(pending)
         if passes > 1:
             # feedback between passes: first output -> first input on the
-            # host; auxiliary inputs carry over (same convention as
-            # build_fn's chunk loop)
+            # host; auxiliary inputs carry over (same convention as the
+            # xla backend's scan)
             values = {n: inputs[n] for n in program.input_names}
             values[in_name] = host_out[out0]
     return host_out

@@ -1,13 +1,15 @@
-"""Cross-chip grid sharding: `shard_map` over an ICI mesh with `ppermute`
-halo exchange.
+"""Cross-device grid sharding: `shard_map` over a device mesh with
+`ppermute` halo exchange.
 
-TPU-native replacement for the reference's host-side tiling of large grids
-into overlapping tiles (src/soda/codegen/xilinx/host.py per SURVEY.md
-§2.3/§5 "long-context" row, reconstructed — empty mount): instead of the
-host re-computing halo overlaps per tile, the grid is sharded over a device
+Replacement for the reference's host-side tiling of large grids into
+overlapping tiles (src/soda/codegen/xilinx/host.py per SURVEY.md §2.3/§5
+"long-context" row, reconstructed — empty mount): instead of the host
+re-computing halo overlaps per tile, the grid is sharded over a device
 mesh and each sweep (or fused sweep-chunk) exchanges halo slabs with
-neighbor devices over ICI.  This is the stencil world's ring/neighbor
-exchange (the context-parallelism analog).
+neighbor devices (NVLink between the cards of one host; XLA hands the
+ppermutes to NCCL).  This is the stencil world's ring/neighbor exchange
+(the context-parallelism analog).  The mesh follows the algorithm alone:
+the cards of one host reach each other at the same rate.
 
 Boundary convention: `jax.lax.ppermute` leaves non-received outputs ZERO,
 which is exactly the program's zero-fill border convention — edge devices
@@ -19,8 +21,8 @@ region after every exchange chunk (exchanged halos keep the zero-fill
 contract), and results are sliced back — bit-exact at exchange-every-sweep,
 rim-only deviation at deeper cadences (docs/SEMANTICS.md).
 
-Local per-device compute uses either the portable XLA backend (default —
-works on the simulated CPU mesh) or the Pallas backend (TPU).
+Local per-device compute is the XLA backend's sweep evaluation.  64-bit
+programs shard as pairs of 32-bit planes (interp/wide64.py carriers).
 """
 
 from __future__ import annotations
@@ -58,8 +60,7 @@ def halo_exchange(x: jax.Array, dim: int, lo: int, hi: int,
     the bottom `hi` rows of device i+1 as its high halo; edge devices get
     zeros (ppermute non-received outputs are zero — matches the border
     convention).  Halos WIDER than one shard gather from k-hop neighbors
-    with one ppermute per hop (ICI routes multi-hop; XLA can overlap the
-    independent sends).  64-bit pair carriers (interp/wide64.W) exchange
+    with one ppermute per hop (XLA can overlap the independent sends).  64-bit pair carriers (interp/wide64.W) exchange
     per plane — zero planes ARE the zero value."""
     from ..interp.wide64 import W
 
@@ -91,22 +92,19 @@ def halo_exchange(x: jax.Array, dim: int, lo: int, hi: int,
 
 
 # ---- link model --------------------------------------------------------
-# Modeled per-device link constants (GB/s, per-exchange latency s).  This
-# environment cannot measure them (one chip, timing-emulated — BASELINE.md):
-# ICI uses the public v5e neighbor-link order of magnitude; DCN is the
-# cross-slice share per chip typical of multi-slice pods.  On a real pod,
-# CALIBRATE with measured numbers — only the RATIO drives cadence choice:
-# `sodac --link-model 'ici=90:2e-6,dcn=6.25:1e-4'`, the
-# SODA_LINK_MODEL env var (same syntax), or set_link_model() from Python.
-LINK_MODEL = {
-    "ici": (90.0, 2e-6),
-    "dcn": (6.25, 100e-6),
-}
+# Per-device link costs (GB/s each way, per-exchange latency s) that drive
+# the auto cadence choice.  The "nvlink" class (every axis not named dcn*)
+# comes from the device table (utils/device.py).  A "dcn" class — a slower
+# link between hosts — has no default: one machine of cards has none to
+# model, so a dcn* axis needs `sodac --link-model 'dcn=GBPS:LAT'` (or
+# set_link_model()).  Only the RATIO of link to compute cost drives the
+# choice; calibrate with measured numbers.
+LINK_MODEL: dict[str, tuple[float, float]] = {}
 
 
 def set_link_model(spec: str) -> None:
     """Override link constants from 'class=GB/s:latency_s[,...]', e.g.
-    'ici=95:1.5e-6,dcn=4:2e-4' — the calibration hook for real pods."""
+    'nvlink=400:8e-6,dcn=25:1e-4' — the calibration hook."""
     for part in spec.split(","):
         part = part.strip()
         if not part:
@@ -118,12 +116,19 @@ def set_link_model(spec: str) -> None:
         except ValueError as e:
             raise ValueError(
                 f"bad --link-model entry {part!r}: expected "
-                f"class=GBps:latency_s (e.g. ici=90:2e-6)") from e
+                f"class=GBps:latency_s (e.g. nvlink=450:1e-5)") from e
 
 
-_env_spec = __import__("os").environ.get("SODA_LINK_MODEL")
-if _env_spec:
-    set_link_model(_env_spec)
+def link_cost(link_class: str, spec) -> tuple[float, float]:
+    """(GB/s, latency s) of a link class: a calibrated override, else the
+    device table's NVLink row; a class with neither is an error."""
+    if link_class in LINK_MODEL:
+        return LINK_MODEL[link_class]
+    if link_class == "nvlink":
+        return spec.link_bytes_per_s / 1e9, spec.link_latency_s
+    raise ValueError(
+        f"link class {link_class!r} has no default cost on one machine; "
+        f"give it with --link-model '{link_class}=GBPS:LATENCY_S'")
 
 
 def _divisors(n: int) -> list[int]:
@@ -145,21 +150,24 @@ def choose_exchange_cadence(
     /vpu_rate — fewer, deeper exchanges amortize slow-link latency and
     bandwidth at the price of halo recompute — then rounds the choices to
     a divisor chain (slow axes exchange at multiples of fast axes' cadence)
-    so the exchange schedule nests.  TPU-native analog of multi-slice
-    training's 'communicate over DCN less often than over ICI'."""
-    from ..utils.opcount import V5E_VPU_TOPS, ops_per_cell
+    so the exchange schedule nests — the analog of multi-host training's
+    'communicate over the slow link less often'.  Compute and NVLink
+    rates come from the device table row of the mesh's devices."""
+    from ..utils.device import device_spec
+    from ..utils.opcount import ops_per_cell
 
+    spec = device_spec(mesh.devices.flat[0].device_kind)
     it = max(iterate, 1)
     out_span = program.chain_creep()
     mesh_sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     ops = max(ops_per_cell(program), 1)
-    cell_s = ops / (V5E_VPU_TOPS * 1e12)
+    cell_s = ops / spec.f32_flops_per_s
     # bytes per cell moved/computed: use the widest tensor container
     dtype_b = max(t.type.tpu_storage_bytes for t in program.tensors.values())
 
     cad: dict[str, int] = {}
     for ax, d in zip(mesh.axis_names, dims):
-        bw_gbps, lat = LINK_MODEL[link_classes.get(ax, "ici")]
+        bw_gbps, lat = link_cost(link_classes.get(ax, "nvlink"), spec)
         r = (-out_span[d][0]) + out_span[d][1]
         if r == 0 or it == 1:
             cad[ax] = it
@@ -219,28 +227,22 @@ def build_sharded_fn(
     dims: Sequence[int] | None = None,
     iterate: int | None = None,
     sweeps_per_exchange: int | Mapping[str, int] | None = None,
-    local_backend: str = "xla",
-    interpret: bool | str = False,
     grid_shape: tuple[int, ...] | None = None,
     overlap: bool = False,
     link_classes: Mapping[str, str] | None = None,
 ):
     """Build fn(inputs, params) -> outputs, sharded over `mesh`.
 
-    `interpret` is forwarded to the Pallas local backend: False/True force
-    compiled/interpreter mode; "auto" (the CLI default) interprets only on
-    non-TPU hosts.  The xla local backend ignores it.
-
     `dims[k]` is the tensor dim sharded over mesh axis k (default: leading
     dims).  Per exchange, halo width = sweeps_per_exchange × per-sweep span
     along each sharded dim; local compute runs that many fused sweeps on
     the halo-extended shard, then slices the center (overlapped tiling
-    across devices — SODA's host tiling, but over ICI).
+    across devices — SODA's host tiling, but over the device links).
 
-    Multi-slice pods: pass `link_classes` mapping mesh axis name →
-    "ici"|"dcn" and either a per-axis `sweeps_per_exchange` mapping or
+    Slow links: pass `link_classes` mapping mesh axis name →
+    "nvlink"|"dcn" and either a per-axis `sweeps_per_exchange` mapping or
     None (auto: `choose_exchange_cadence` picks deeper cadences on slow
-    DCN axes from the modeled link costs).  Differing per-axis cadences
+    dcn axes from the modeled link costs).  Differing per-axis cadences
     run a NESTED exchange schedule — slowest axis outermost — and fall
     back to the synchronous (non-overlap) path."""
     it = max(program.iterate if iterate is None else iterate, 1)
@@ -249,7 +251,7 @@ def build_sharded_fn(
     # 64-bit programs shard as PLANE PAIRS: each wide tensor crosses the
     # shard_map boundary as two 32-bit plane arrays, halo-exchanged per
     # plane, and the local compute runs the pair-carrier evaluator
-    # (exact s64/u64, double-single f64 — same as the Pallas wide mode).
+    # (exact s64/u64, double-single f64).
     # Synthetic compiler-generated int64 partial sums in 32-bit programs
     # keep int32 local compute (documented).
     from ..interp.wide128 import program_is_128
@@ -259,8 +261,6 @@ def build_sharded_fn(
             f"program {program.name!r} uses >64-bit integers: the mesh "
             "path shards up to 64-bit plane pairs; run single-chip with "
             "`--backend xla` (quad-limb carriers)")
-    # wide + pallas local compute traces since W pair carriers became a
-    # pytree: the per-shard Pallas group fns consume/produce W directly
     wide = wide64.program_is_wide(program)
     axis_names = mesh.axis_names
     if dims is None:
@@ -269,7 +269,7 @@ def build_sharded_fn(
         raise ValueError("one tensor dim per mesh axis")
 
     # normalize the exchange cadence: uniform int (legacy), explicit
-    # per-axis mapping, or auto per-axis when a DCN axis is declared
+    # per-axis mapping, or auto per-axis when a dcn axis is declared
     cad: dict[str, int] | None = None
     if isinstance(sweeps_per_exchange, Mapping):
         cad = {ax: int(sweeps_per_exchange.get(ax, it)) for ax in axis_names}
@@ -377,12 +377,12 @@ def build_sharded_fn(
         if wide:
             return EvalContext(program=program, xp=wide64.WideXP(jnp),
                                tap=tap, params=params, int_width=64,
-                               tpu_wide=True)
+                               pair_wide=True)
         return EvalContext(program=program, xp=jnp, tap=tap,
                            params=params, int_width=32)
 
     def sweeps_on(arrs: dict, params: dict) -> dict:
-        """nf zero-fill sweeps on whatever extents `arrs` has (XLA path)."""
+        """nf zero-fill sweeps on whatever extents `arrs` has."""
         out = dict(arrs)
         for s in range(nf):
             ctx = _eval_ctx(
@@ -400,8 +400,7 @@ def build_sharded_fn(
         return out
 
     def local_chunk_overlap(arrays: dict, params: dict) -> dict:
-        """Comms/compute overlap (any mesh rank, xla or pallas local
-        backend): the shard interior is computed from purely local data
+        """Comms/compute overlap (any mesh rank): the shard interior is computed from purely local data
         while the ppermute halo exchange is in flight (XLA overlaps the
         async collective with the independent interior computation); only
         thin boundary strips per sharded dim are recomputed from the
@@ -411,16 +410,7 @@ def build_sharded_fn(
         strip slabs carry the other dims' halos so corners are exact."""
         # interior: full local compute on the RAW shard (zero-filled edges;
         # invalid only within the lo/hi bands replaced below)
-        if local_backend == "pallas":
-            from ..backend import pallas as pallas_backend
-
-            shard_shape = tuple(next(iter(arrays.values())).shape)
-            pfn = pallas_backend.build_fn(
-                program, grid_shape=shard_shape, iterate=nf,
-                interpret=interpret)
-            local_out = pfn(arrays, params)
-        else:
-            local_out = sweeps_on(arrays, params)
+        local_out = sweeps_on(arrays, params)
 
         ext = {}
         for n, x in arrays.items():
@@ -480,25 +470,6 @@ def build_sharded_fn(
                 x = halo_exchange(x, d, lo, hi, ax)
             ext[n] = x
 
-        if local_backend == "pallas":
-            # per-device Pallas kernels on the halo-extended shard: the
-            # extended shape is static at trace time, so the planner runs
-            # per shard exactly as on a single chip
-            from ..backend import pallas as pallas_backend
-
-            ext_shape = tuple(next(iter(ext.values())).shape)
-            pfn = pallas_backend.build_fn(
-                program, grid_shape=ext_shape, iterate=nf,
-                interpret=interpret)
-            outs_full = pfn(ext, params)
-            out = {}
-            for n in out_names:
-                x = outs_full[n]
-                for d, (lo, hi, _ax) in halos.items():
-                    x = _slice_dim(x, lo, x.shape[d] - hi, d)
-                out[n] = x
-            return out
-
         arrs = sweeps_on(dict(ext), params)
 
         out = {}
@@ -533,10 +504,10 @@ def build_sharded_fn(
             outs = _mask_pad(local_chunk(nxt, params))
         return outs
 
-    # ---- nested per-axis cadence (multi-slice) schedule ------------------
+    # ---- nested per-axis cadence (slow-link) schedule ----------------------
     # Slowest axis outermost: each level exchanges its own halo every
     # cad[ax] sweeps and recurses; the innermost runs cad[min] constant-
-    # extent zero-fill sweeps (XLA or per-shard Pallas).  Validity creep
+    # extent zero-fill sweeps.  Validity creep
     # along an outer dim stays within that level's k*creep halo exactly as
     # in the uniform case; inner exchanges operate on outer-extended arrays
     # whose extension validity is symmetric across the inner axis, so
@@ -545,14 +516,6 @@ def build_sharded_fn(
         order = sorted(zip(axis_names, dims), key=lambda t: -cad[t[0]])
 
         def sweeps_n(arrs: dict, params: dict, n: int) -> dict:
-            if local_backend == "pallas":
-                from ..backend import pallas as pallas_backend
-
-                shape = tuple(next(iter(arrs.values())).shape)
-                pfn = pallas_backend.build_fn(
-                    program, grid_shape=shape, iterate=n,
-                    interpret=interpret)
-                return pfn(arrs, params)
             out = dict(arrs)
             for s in range(n):
                 ctx = _eval_ctx(
@@ -752,8 +715,6 @@ def run_sharded(
     dims: Sequence[int] | None = None,
     iterate: int | None = None,
     sweeps_per_exchange: int | Mapping[str, int] | None = None,
-    local_backend: str = "xla",
-    interpret: bool | str = False,
     overlap: bool = False,
     jit: bool = True,
     link_classes: Mapping[str, str] | None = None,
@@ -762,9 +723,7 @@ def run_sharded(
     """Convenience wrapper: shard inputs over a mesh, run, gather numpy."""
     import numpy as np
 
-    from ..backend.pallas import _check_io
-
-    _check_io(program, inputs, params or {})
+    xla_backend.check_io(program, inputs, params or {})
     if mesh is None:
         mesh = make_mesh(axis_sizes or [len(jax.devices())],
                          axis_names=axis_names)
@@ -772,9 +731,7 @@ def run_sharded(
     fn = build_sharded_fn(
         program, mesh, dims=dims, iterate=iterate,
         sweeps_per_exchange=sweeps_per_exchange, grid_shape=grid_shape,
-        local_backend=local_backend, interpret=interpret, overlap=overlap,
-        link_classes=link_classes)
-    from ..backend.pallas import finalize_outputs
+        overlap=overlap, link_classes=link_classes)
     from ..interp.wide64 import program_is_wide
 
     if program_is_wide(program):
@@ -788,4 +745,4 @@ def run_sharded(
         if jit:
             fn = jax.jit(fn)
         outs = fn({k: jnp.asarray(v) for k, v in inputs.items()}, params)
-    return finalize_outputs(program, outs)
+    return xla_backend.finalize_outputs(program, outs)

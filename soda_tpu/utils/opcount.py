@@ -2,12 +2,10 @@
 the roofline (the reference's analog is HLS resource/II reports,
 SURVEY.md §5 'tracing' row).
 
-Counts VPU ops per output cell for each stage: arithmetic/select/compare
-as 1 op, transcendentals (sqrt/exp/log/trig/pow) at a configurable weight
-(they run on a slower path).  Combined with the plan's compute-extent
-ratio this yields an estimated VPU-bound throughput to report alongside
-the HBM bound — claims about fused-sweep speedups must respect
-min(HBM bound, VPU bound).
+Counts ops per output cell for each stage: arithmetic/select/compare as
+1 op, transcendentals (sqrt/exp/log/trig/pow) at a configurable weight
+(they run on a slower path).  The report prints it; the mesh's cadence
+model divides it by the device table's f32 rate.
 """
 
 from __future__ import annotations
@@ -21,16 +19,11 @@ _TRANSCENDENTALS = {"sqrt", "rsqrt", "exp", "exp2", "log", "log2", "sin",
                     "acos", "sinh", "cosh", "log10", "expm1", "log1p",
                     "hypot"}
 
-# v5e VPU estimate: 8×128 lanes × 4 ALUs × ~0.94 GHz ≈ 3.85 Top/s f32.
-# An ESTIMATE for reporting only (public per-part VPU numbers are not
-# published the way MXU FLOPs are); stated explicitly in the report.
-V5E_VPU_TOPS = 3.85
-
 
 def expr_ops(e: ir.Expr) -> float:
     """Weighted op count over DISTINCT subexpressions: XLA CSEs repeated
     subtrees (e.g. heat3d's center tap appearing in all three directional
-    terms), so counting every occurrence would overstate the VPU bound.
+    terms), so counting every occurrence would overstate the compute.
     IR nodes are frozen dataclasses — structural equality dedups exactly."""
     ops = 0.0
     seen: set = set()
@@ -56,119 +49,7 @@ def expr_ops(e: ir.Expr) -> float:
     return ops
 
 
-# Per-op VPU multipliers for 64-bit values on the pair-carrier path
-# (interp/wide64), walked per expression node with the node's inferred
-# type (VERDICT r2 #5 — replaces the old blended 6.0× multiplier, which
-# underestimated division-heavy programs).  Integer pairs (s64/u64 as two
-# u32 limbs): add/sub = limb adds + carry compare ≈ 4; mul = 16-bit half
-# products + carries ≈ 12; shifts ≈ 6; compares/selects/min/max ≈ 3
-# (limb compares + selects); `/` and `%` by a non-power-of-two lower to
-# the 64-step long division (~8 ops/step = 512); by a constant power of
-# two to bias-then-shift (~6).  `double` (double-single f32 pairs):
-# two_sum-based add ≈ 20, Dekker-split mul ≈ 17, div ≈ 35, sqrt ≈ 50
-# (error-free transform), other transcendentals ≈ 80.  All MODELED — the
-# report labels the wide VPU bound per-op-modeled; per-op throughput is
-# not measurable on a timing-emulated chip (BASELINE.md).
-_WIDE_INT = {"+": 4.0, "-": 4.0, "*": 12.0, "<<": 6.0, ">>": 6.0,
-             "&": 2.0, "|": 2.0, "^": 2.0}
-_WIDE_INT_DIV = 512.0
-_WIDE_INT_DIV_POW2 = 6.0
-_WIDE_FLT = {"+": 20.0, "-": 20.0, "*": 17.0, "/": 35.0}
-_WIDE_CMP = 3.0
-# DS transcendental weights MEASURED as traced jaxpr equation counts of
-# the wide64 implementations (r3 continuation, after the two-level
-# Cody–Waite reduction), divided by 2 — the scale implied by the basic
-# ops (add 40 eqns ↔ weight 20, mul 32 ↔ 17, div 79 ↔ 35, so
-# 1 unit ≈ 2 eqns ≈ 1 f32 ALU op).  These feed BOTH the VPU-bound
-# report and the compute-pressure split budget (planner
-# KERNEL_OP_BUDGET), so trig-heavy wide stages now split honestly.
-_WIDE_CALL = {"sqrt": 38.0, "rsqrt": 77.0,  # sqrt + DS div
-              "exp": 475.0, "exp2": 488.0, "log": 441.0, "log2": 454.0,
-              "log10": 456.0, "log1p": 788.0, "expm1": 884.0,
-              # sin/cos/tan re-measured round 4 after the Payne–Hanek
-              # reduction joined the graph (it runs on every lane, merged
-              # by select): ~2600 eqns on the same add-40↔20 scale
-              "sin": 1300.0, "cos": 1300.0, "tan": 1340.0, "tanh": 574.0,
-              "sinh": 1444.0, "cosh": 538.0, "atan": 710.0,
-              "asin": 1396.0, "acos": 1416.0, "atan2": 787.0,
-              "hypot": 118.0, "pow": 938.0}
-_WIDE_CALL_DEFAULT = 800.0
-_CMP_OPS = ("==", "!=", "<", ">", "<=", ">=")
-
-
-def expr_ops_wide(e: ir.Expr, program: StencilProgram) -> float:
-    """Weighted pair-carrier op count over DISTINCT subexpressions: each
-    node costs its modeled wide multiplier when its inferred type is
-    64-bit, 1 (f32/i32 native) otherwise — mixed-width programs charge
-    only the wide subtrees."""
-
-    def is_wide_t(t) -> bool:
-        return t is not None and t.width > 32
-
-    def node_type(n):
-        try:
-            return program.infer_type(n)
-        except (TypeError, KeyError):
-            return None
-
-    ops = 0.0
-    seen: set = set()
-    for n in ir.walk(e):
-        if n in seen:
-            continue
-        seen.add(n)
-        wide = is_wide_t(node_type(n))
-        if isinstance(n, ir.BinOp):
-            if n.op in _CMP_OPS:
-                # compares of wide operands return int32 but cost limb
-                # compares
-                wide_cmp = any(is_wide_t(node_type(o))
-                               for o in (n.lhs, n.rhs))
-                ops += _WIDE_CMP if wide_cmp else 1
-            elif not wide:
-                ops += 1
-            elif node_type(n).is_float:
-                ops += _WIDE_FLT.get(n.op, 20.0)
-            elif n.op in ("/", "%"):
-                from ..interp.evaluator import _const_pow2
-
-                ops += (_WIDE_INT_DIV_POW2 if _const_pow2(n.rhs) is not None
-                        else _WIDE_INT_DIV)
-            else:
-                ops += _WIDE_INT.get(n.op, 4.0)
-        elif isinstance(n, ir.UnOp):
-            ops += 0 if n.op == "+" else (4.0 if wide else 1)
-        elif isinstance(n, ir.Select):
-            ops += _WIDE_CMP if wide else 1
-        elif isinstance(n, ir.Call):
-            if n.fn in _TRANSCENDENTALS:
-                ops += (_WIDE_CALL.get(n.fn, _WIDE_CALL_DEFAULT) if wide
-                        else TRANSCENDENTAL_WEIGHT)
-            else:
-                k = max(len(n.args) - 1, 1)
-                ops += k * (_WIDE_CMP if wide else 1)
-        elif isinstance(n, ir.Cast):
-            ops += 2.0 if wide else 1
-    return ops
-
-
 def ops_per_cell(program: StencilProgram) -> float:
-    """Weighted VPU ops per cell for ONE sweep of all stages.  Programs
-    on the in-kernel 64-bit pair-carrier path charge per-op pair-carrier
-    weights (modeled; see table above)."""
-    from ..interp.wide64 import program_is_wide
-
-    if program_is_wide(program):
-        return sum(expr_ops_wide(t.expr, program)
-                   for t in program.tensors.values() if t.expr is not None)
+    """Weighted ops per cell for ONE sweep of all stages."""
     return sum(expr_ops(t.expr) for t in program.tensors.values()
                if t.expr is not None)
-
-
-def vpu_bound_gcells(program: StencilProgram,
-                     compute_extent_ratio: float = 1.0) -> float:
-    """Estimated VPU-bound GCell-updates/s on a v5e."""
-    ops = ops_per_cell(program) * max(compute_extent_ratio, 1.0)
-    if ops <= 0:
-        return float("inf")
-    return V5E_VPU_TOPS * 1e3 / ops  # Tops/s ÷ ops/cell = Gcell/s ×1e3

@@ -1,161 +1,115 @@
-"""Compile/performance reporting: the TPU analog of the reference's HLS
-report surface (II/latency/resource from Vivado logs — SURVEY.md §5
-'tracing' row).  Reports block shapes, halo widths, VMEM bytes, analytic
-HBM traffic, roofline fraction, and compile wall-clock.
+"""Compile report: the analog of the reference's HLS report surface
+(II/latency/resource from Vivado logs — SURVEY.md §5 'tracing' row).
 
-Roofline math (BASELINE.md): per-sweep ideal traffic for a stencil with
-full on-chip reuse is one read + one write per cell (8 B/cell at f32).
-Temporally-fused configs (iterate=N) are reported against the N-SWEEP
-ideal — a perfectly fused run still reads and writes each cell once for
-all N updates, so the per-UPDATE ideal is ideal/N and every fraction stays
-<= 100% (jacobi2d it=8 reads "1.008 B/cell-update vs 1.0 -> 99%", never
-"793% of single-sweep").  Wall-clock on the local timing-emulated device
-is NOT used for perf claims; the planner's byte counts are exact by
-construction.
+Every quantity here is taken from the program itself, never from a device
+model: the ideal device-memory traffic per cell-update in storage dtypes,
+operations per cell (utils/opcount.py), halo creep and the border-invalid
+rim, and — when measured — the compile wall-clock of the XLA path.
+
+Ideal traffic: a sweep that keeps every intermediate on chip reads each
+program input and writes each program output once, in their storage
+dtypes (8 B/cell for an f32 stencil).  With `iterate` sweeps fused the
+same bytes serve every sweep, so the per-UPDATE ideal is the per-sweep
+ideal ÷ sweeps.  Measured rates are compared against these by the
+benchmark, on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any
 
-from ..plan.planner import Plan
-
-V5E_HBM_GBPS = 819.0  # public v5e spec
+from ..ir.program import StencilProgram
 
 
 @dataclasses.dataclass
 class CompileReport:
     program: str
     grid_shape: tuple[int, ...]
-    plan: dict
-    bytes_per_cell_update: float
-    # per-UPDATE ideal: the per-sweep ideal ÷ total sweeps (N-sweep
-    # roofline); fractions against it are always <= 100%
+    sweeps: int                          # cell-updates per cell per call
+    ideal_bytes_per_cell_sweep: float
     ideal_bytes_per_cell_update: float
-    roofline_fraction: float
-    est_gcells_per_s_v5e: float
-    sweeps_total: int = 1
-    ideal_bytes_per_cell_sweep: float = 8.0
-    vpu_ops_per_update: float | None = None
-    est_vpu_bound_gcells: float | None = None
+    ops_per_cell_update: float
+    chain_creep: tuple[tuple[int, int], ...]
+    valid_rim: int
     compile_seconds: float | None = None
-    vpu_model: str = "per-op f32"
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
         d["grid_shape"] = list(self.grid_shape)
+        d["chain_creep"] = [list(c) for c in self.chain_creep]
         return d
 
     def pretty(self) -> str:
-        out = [f"=== soda_tpu compile report: {self.program} {self.grid_shape} ==="]
-        for g in self.plan["groups"]:
-            out.append(
-                f"  kernel: stages={g['stages']} sweeps={g['sweeps']} "
-                f"block={tuple(g['block'])} grid={tuple(g['grid'])}")
-            out.append(
-                f"    vmem={g['vmem_bytes']/2**20:.2f} MiB  "
-                f"traffic={g['bytes_per_cell_update']:.3f} B/cell-update  "
-                f"compute-extent={g['compute_extent_ratio']:.2f}x")
-        if self.sweeps_total > 1:
-            out.append(
-                f"  analytic: {self.bytes_per_cell_update:.3f} B/cell-update "
-                f"vs the {self.sweeps_total}-sweep ideal "
-                f"{self.ideal_bytes_per_cell_update:.3f} "
-                f"({self.ideal_bytes_per_cell_sweep:.1f} B/cell ÷ "
-                f"{self.sweeps_total} fused updates) -> "
-                f"{100*self.roofline_fraction:.1f}% of the "
-                f"{self.sweeps_total}-sweep HBM roofline")
-        else:
-            out.append(
-                f"  analytic: {self.bytes_per_cell_update:.3f} B/cell-update vs "
-                f"ideal {self.ideal_bytes_per_cell_update:.1f} -> "
-                f"{100*self.roofline_fraction:.1f}% of single-sweep HBM roofline")
-        out.append(
-            f"  est. v5e throughput (819 GB/s HBM): "
-            f"{self.est_gcells_per_s_v5e:.1f} GCell-updates/s")
-        if self.est_vpu_bound_gcells is not None:
-            bound = min(self.est_gcells_per_s_v5e, self.est_vpu_bound_gcells)
-            which = ("HBM" if self.est_gcells_per_s_v5e
-                     <= self.est_vpu_bound_gcells else "VPU")
-            out.append(
-                f"  est. VPU bound (~3.85 Top/s f32, {self.vpu_ops_per_update:.1f}"
-                f" weighted ops/update incl. extent waste, {self.vpu_model}): "
-                f"{self.est_vpu_bound_gcells:.1f} GCell-updates/s "
-                f"-> {which}-bound at {bound:.1f}")
+        shape = "x".join(map(str, self.grid_shape))
+        out = [f"=== soda_tpu compile report: {self.program} {shape} ===",
+               f"  sweeps per call: {self.sweeps}",
+               f"  ideal traffic: {self.ideal_bytes_per_cell_sweep:.3f} "
+               f"B/cell per sweep (inputs read + outputs written once, "
+               f"storage dtypes); {self.ideal_bytes_per_cell_update:.3f} "
+               f"B/cell-update with all {self.sweeps} sweep(s) fused",
+               f"  ops per cell-update: {self.ops_per_cell_update:.1f} "
+               f"(weighted; utils/opcount.py)",
+               f"  halo creep per sweep: "
+               + " ".join(f"[{lo},{hi}]" for lo, hi in self.chain_creep)
+               + f"; border-invalid rim {self.valid_rim}"]
         if self.compile_seconds is not None:
             out.append(f"  compile wall-clock: {self.compile_seconds:.2f}s")
         return "\n".join(out)
 
 
-def analyze(plan: Plan, dtype_bytes: int = 4, program=None) -> CompileReport:
-    pj = plan.to_json()
-    total_bytes = sum(g["hbm_bytes_per_call"] for g in pj["groups"])
-    total_useful = max(sum(g["useful_cells_per_call"] for g in pj["groups"]), 1)
-    # chunked iterate calls scale bytes and useful cells equally, so the
-    # per-update ratio needs no chunk factor
-    bpc = total_bytes / total_useful
-    # per-sweep ideal: program inputs read + outputs written once, in their
-    # TPU storage dtypes (narrow ints stream at 2 B/cell like the reference)
-    ideal_sweep = pj.get("ideal_bytes_per_cell", 2 * dtype_bytes)
-    # per-UPDATE ideal: temporally-fused configs compare against the
-    # N-sweep roofline (ideal ÷ total sweeps) so fractions stay <= 100%
-    sweeps_total = max(int(pj.get("sweeps_total", 1)), 1)
-    ideal = ideal_sweep / sweeps_total
-    frac = min(ideal / bpc, 1.0) if bpc > 0 else 0.0
-    est = V5E_HBM_GBPS / bpc  # GB/s ÷ B/cell-update = Gcell-update/s
-    vpu_ops = vpu_bound = None
-    vpu_model = "per-op f32"
-    if program is not None:
-        from ..interp.wide64 import program_is_wide
-        from .opcount import ops_per_cell, vpu_bound_gcells
+def analyze(program: StencilProgram, grid_shape, updates_per_cell: int = 1,
+            compile_seconds: float | None = None) -> CompileReport:
+    from .opcount import ops_per_cell
 
-        waste = max(g["compute_extent_ratio"] for g in pj["groups"])
-        vpu_ops = ops_per_cell(program) * max(waste, 1.0)
-        vpu_bound = vpu_bound_gcells(program, waste)
-        if program_is_wide(program):
-            vpu_model = "per-op-modeled pair carriers"
+    sweeps = max(program.iterate, 1) * max(updates_per_cell, 1)
+    per_sweep = float(sum(
+        program.tensors[n].type.tpu_storage_bytes
+        for n in program.input_names + program.output_names))
     return CompileReport(
-        program=pj["program"],
-        grid_shape=tuple(pj["grid_shape"]),
-        plan=pj,
-        bytes_per_cell_update=bpc,
-        ideal_bytes_per_cell_update=float(ideal),
-        roofline_fraction=frac,
-        est_gcells_per_s_v5e=est,
-        sweeps_total=sweeps_total,
-        ideal_bytes_per_cell_sweep=float(ideal_sweep),
-        vpu_ops_per_update=vpu_ops,
-        est_vpu_bound_gcells=vpu_bound,
-        vpu_model=vpu_model,
+        program=program.name,
+        grid_shape=tuple(grid_shape),
+        sweeps=sweeps,
+        ideal_bytes_per_cell_sweep=per_sweep,
+        ideal_bytes_per_cell_update=per_sweep / sweeps,
+        ops_per_cell_update=ops_per_cell(program) / max(updates_per_cell, 1),
+        chain_creep=tuple(program.chain_creep()),
+        valid_rim=program.valid_rim(),
+        compile_seconds=compile_seconds,
     )
 
 
-def xla_bytes_per_update(compiled, updates: int) -> float | None:
-    """Independent cross-check: XLA compiled cost-model bytes per cell
-    update for a whole jitted program (sum of the per-operand
-    'bytes accessed' entries).  Tight for single-operand plans; counts
-    whole buffers per aliased strips operand.  None when the backend has
-    no cost model."""
-    try:
-        ca = compiled.cost_analysis()
-        if isinstance(ca, (list, tuple)):
-            ca = ca[0]
-        total = sum(v for k, v in ca.items()
-                    if k.startswith("bytes accessed"))
-        return total / float(updates)
-    except Exception:
-        return None
-
-
-def time_compile(fn, *args) -> tuple[Any, float]:
-    """AOT-lower and compile a jitted fn, returning (compiled, seconds) —
-    the 'compile wall-clock' metric (the reference's hours-long Vivado
-    HLS/P&R flow collapses to seconds here, SURVEY.md §6)."""
+def compile_seconds(program: StencilProgram, grid_shape,
+                    iterate: int | None = None) -> float | None:
+    """Wall-clock of lowering + compiling the XLA path at `grid_shape`
+    (abstract inputs: no data is made).  None for >64-bit programs, whose
+    quad-limb inputs are built from data."""
     import jax
 
-    t0 = time.perf_counter()
-    lowered = jax.jit(fn).lower(*args)
-    compiled = lowered.compile()
-    return compiled, time.perf_counter() - t0
+    from ..backend.xla import Runner
+
+    runner = Runner(program, iterate)
+    if runner.w128:
+        return None
+    with runner.x64():
+        ins = {n: jax.ShapeDtypeStruct(tuple(grid_shape),
+                                       program.tensors[n].type.np_dtype())
+               for n in program.input_names}
+        pars = {p.name: jax.ShapeDtypeStruct(p.shape, p.type.np_dtype())
+                for p in program.params.values()}
+        t0 = time.perf_counter()
+        runner.fn.lower(ins, pars).compile()
+        return time.perf_counter() - t0
+
+
+def xla_bytes_per_update(compiled, updates: int) -> float | None:
+    """XLA's cost-model bytes per cell update for a whole compiled program
+    (sum of its 'bytes accessed' entries).  None when the backend has no
+    cost model."""
+    ca = compiled.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0] if ca else None
+    if not ca:
+        return None
+    total = sum(v for k, v in ca.items() if k.startswith("bytes accessed"))
+    return total / float(updates)

@@ -1,6 +1,6 @@
-"""Backend equivalence tests: XLA backend, Pallas backend (interpret mode on
-the CPU CI; compiled validation runs on real TPU via scripts/tpu_check.py),
-and the generated C++ golden runner, all against the NumPy oracle.
+"""Backend equivalence tests: the XLA backend (whole grid and host-tiled)
+and the generated C++ golden runner, all against the NumPy oracle.  The
+compiled GPU run of the same checks is `chip_smoke.py`.
 
 Border contract (`border: ignore`): the rim of width radius×sweeps is
 invalid; interior must match.  Full-array equality additionally holds for
@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 
 from soda_tpu.frontend.parser import parse, parse_file
-from soda_tpu.interp import numpy_interp, wide128
+from soda_tpu.interp import numpy_interp
 from soda_tpu.backend import xla as xla_backend
-from soda_tpu.backend import pallas as pallas_backend
 from soda_tpu.backend import cpp as cpp_backend
+from soda_tpu.parallel.host_tile import run_host_tiled
 
 SODA = pathlib.Path(__file__).parent / "soda"
 CORPUS = sorted(glob.glob(str(SODA / "*.soda")))
@@ -54,8 +54,8 @@ def interior(a, rim):
 
 
 def check(p, got, gold, rtol=None, atol=None):
-    # half programs compute f32 between f16-rounded stores on TPU while
-    # the oracle rounds per op — compare at f16 scale (docs/SEMANTICS.md)
+    # half programs compute f32 between f16-rounded stores on the XLA path
+    # while the oracle rounds per op — compare at f16 scale (docs/SEMANTICS.md)
     half = any(t.type.is_float and t.type.width == 16
                for t in p.tensors.values())
     rtol = (2e-2 if half else 1e-4) if rtol is None else rtol
@@ -84,19 +84,22 @@ def test_xla_backend_matches_oracle(path):
     check(p, got, gold)
 
 
+def _half_tiles(shape):
+    """Tiles that split every dim of `shape` in two (at least 2 tiles
+    along each dim longer than 1)."""
+    return tuple(max(n // 2, 1) for n in shape)
+
+
 @pytest.mark.parametrize("path", CORPUS, ids=[pathlib.Path(c).stem for c in CORPUS])
-def test_pallas_backend_matches_oracle(path):
+def test_host_tiled_matches_oracle(path):
+    """Every corpus program through the host-tiled XLA path with tiles
+    that halve each dim: halos, zero-filled grid edges and the stitch
+    must reproduce the oracle (>64-bit programs included: each tile runs
+    on quad-limb carriers)."""
     p = parse_file(path)
     ins, ps = make_io(p)
-    if wide128.program_is_128(p):
-        # >64-bit is XLA-backend-only (quad-limb carriers); the Pallas
-        # path's typed rejection names the supported route
-        with pytest.raises(NotImplementedError, match="--backend xla"):
-            pallas_backend.run(p, ins, ps, interpret=True)
-        return
     gold = numpy_interp.run(p, ins, ps)
-    # small VMEM budget forces a real multi-block grid even on tiny arrays
-    got = pallas_backend.run(p, ins, ps, vmem_budget=4 * 2**20, interpret=True)
+    got = run_host_tiled(p, ins, ps, tiles=_half_tiles(SHAPES[p.rank]))
     check(p, got, gold)
 
 
@@ -124,30 +127,22 @@ def test_cpp_golden_bit_exact(path, tmp_path):
                 f"{k} not bit-exact vs C++"
 
 
-def test_pallas_sweep_chunking():
-    """iterate chunked into multiple kernel calls must equal full fusion."""
+def test_sweep_chunking():
+    """iterate chunked into host passes of 2 sweeps (4 passes) must equal
+    the oracle, as the single fused scan does."""
     p = parse_file(SODA / "jacobi2d.soda")
     x = rng.standard_normal((48, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
-    a = pallas_backend.run(p, {"t0": x}, interpret=True, vmem_budget=4 * 2**20)
-    # force 2-sweep chunks (4 calls)
-    from soda_tpu.plan.planner import plan as make_plan
-    pl2 = make_plan(p, (48, 128), sweeps=2, vmem_budget=4 * 2**20)
-    assert pl2.groups[0].sweeps == 2
-    fn = pallas_backend.build_fn(p, the_plan=pl2, interpret=True)
-    import jax.numpy as jnp
-    outs = fn({"t0": jnp.asarray(x)}, {})
-    got = {"t1": np.asarray(outs["t1"])}
+    got = run_host_tiled(p, {"t0": x}, tiles=(48, 128), sweeps_per_pass=2)
     check(p, got, gold)
-    check(p, a, gold)
+    check(p, xla_backend.run(p, {"t0": x}), gold)
 
 
-def test_pallas_block_override():
+def test_host_tile_3d_blocks():
     p = parse_file(SODA / "jacobi3d.soda")
     x = rng.standard_normal((24, 32, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
-    got = pallas_backend.run(p, {"t0": x}, interpret=True,
-                             block_override=(8, 16, 128))
+    got = run_host_tiled(p, {"t0": x}, tiles=(8, 16, 128))
     check(p, got, gold)
 
 
@@ -156,54 +151,40 @@ def test_zero_preserving_full_match():
     p = parse_file(SODA / "jacobi3d.soda")
     x = rng.standard_normal((24, 32, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
-    got = pallas_backend.run(p, {"t0": x}, interpret=True, vmem_budget=4 * 2**20)
+    got = xla_backend.run(p, {"t0": x})
     assert np.allclose(got["t1"], gold["t1"], rtol=1e-4, atol=1e-5)
 
 
 def test_nondivisible_grid_shapes():
-    """Grid extents not divisible by the block must round-trip correctly."""
+    """Grid extents not divisible by the tile must round-trip correctly."""
     p = parse_file(SODA / "jacobi2d.soda")
     x = rng.standard_normal((50, 131)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
-    got = pallas_backend.run(p, {"t0": x}, interpret=True, vmem_budget=2 * 2**20)
-    check(p, got, gold)
+    check(p, xla_backend.run(p, {"t0": x}), gold)
+    check(p, run_host_tiled(p, {"t0": x}, tiles=(16, 64)), gold)
 
 
-def test_pallas_multi_group_chain():
-    """Split plan (chained kernels through HBM) must match the oracle."""
-    from soda_tpu.plan.planner import plan as make_plan
-    from soda_tpu.frontend.parser import parse
-    from tests.test_planner import _chain3d_src
+def test_multi_stage_chain_3d():
+    """A six-stage 3-D chain (radius 2 per stage) matches the oracle, whole
+    grid and host-tiled (each tile's halo is the chain's full creep)."""
+    from tests.test_programs import _chain3d_src
 
     p = parse(_chain3d_src())
-    shape = (24, 32, 512)
+    shape = (24, 32, 64)
     x = rng.standard_normal(shape).astype(np.float32)
     gold = numpy_interp.run(p, {"a": x})
-    pl = make_plan(p, shape, vmem_budget=4 * 2**20)
-    assert len(pl.groups) > 1
-    import jax.numpy as jnp
-    fn = pallas_backend.build_fn(p, the_plan=pl, interpret=True)
-    outs = fn({"a": jnp.asarray(x)}, {})
-    got = {k: np.asarray(v) for k, v in outs.items()}
-    check(p, got, gold)
-    # and the fused single-group plan gives the same answer
-    pl1 = make_plan(p, shape, vmem_budget=64 * 2**20)
-    assert len(pl1.groups) == 1
-    fn1 = pallas_backend.build_fn(p, the_plan=pl1, interpret=True)
-    got1 = {k: np.asarray(v) for k, v in fn1({"a": jnp.asarray(x)}, {}).items()}
-    check(p, got1, gold)
+    check(p, xla_backend.run(p, {"a": x}), gold)
+    check(p, run_host_tiled(p, {"a": x}, tiles=(24, 16, 64)), gold)
 
 
-def test_pallas_integer_iterate():
-    """Integer multi-sweep: fori_loop carry must stay loop-invariant."""
-    from soda_tpu.frontend.parser import parse
+def test_integer_iterate():
+    """Integer multi-sweep: the scan carry must stay loop-invariant."""
     p = parse(
         "kernel: intit\niterate: 4\ninput uint16: a(64, *)\n"
         "output uint16: b(0,0) = (a(-1,0) + a(0,0) + a(1,0) + a(0,-1) + a(0,1)) / 5\n")
     x = rng.integers(0, 60000, (48, 128)).astype(np.uint16)
     gold = numpy_interp.run(p, {"a": x})
-    got = pallas_backend.run(p, {"a": x}, interpret=True)
-    check(p, got, gold)
+    check(p, xla_backend.run(p, {"a": x}), gold)
 
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
@@ -238,7 +219,7 @@ def test_multi_output_program():
     x = rng.standard_normal((48, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"f": x})
     assert set(gold) == {"dx", "dy"}
-    got = pallas_backend.run(p, {"f": x}, interpret=True)
+    got = run_host_tiled(p, {"f": x}, tiles=(16, 128))
     check(p, got, gold)
     got_x = xla_backend.run(p, {"f": x})
     check(p, got_x, gold)
@@ -247,39 +228,29 @@ def test_multi_output_program():
 def test_multi_output_iterate_paths():
     """Multi-output iterate (docs/SEMANTICS.md): feedback = first-input <-
     FIRST-declared output; non-feedback outputs take final-sweep values.
-    Covers the trapezoid (corpus residual2d, iterate=4), the deep-iterate
-    constant-extent fori (>16 sweeps), the unrolled lowering, and the
-    hybrid-rim path (unaligned grid)."""
+    Covers the corpus residual2d (iterate=4) whole-grid, unrolled and
+    host-tiled in passes, and a deep iterate (20 sweeps in one scan) with
+    the final sweep evaluated outside the scan for the extra output."""
     from soda_tpu.optimize.unroll import unroll_iterate
 
-    # trapezoid + unroll on the corpus program
     p = parse_file(SODA / "residual2d.soda")
     x = rng.standard_normal((48, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
     assert set(gold) == {"t1", "res"}
     check(p, numpy_interp.run(unroll_iterate(p), {"t0": x}), gold)
-    check(p, pallas_backend.run(p, {"t0": x}, interpret=True), gold)
     check(p, xla_backend.run(p, {"t0": x}), gold)
-    # hybrid rim: non-8-aligned leading extent keeps pad-free strategies
     xr = rng.standard_normal((50, 128)).astype(np.float32)
     gold_r = numpy_interp.run(p, {"t0": xr})
-    check(p, pallas_backend.run(p, {"t0": xr}, interpret=True), gold_r)
+    check(p, run_host_tiled(p, {"t0": xr}, tiles=(25, 128),
+                            sweeps_per_pass=2), gold_r)
 
-    # deep iterate (20 > trapezoid cap) -> constant-extent fori with the
-    # final sweep evaluated outside the loop for the extra output
     q = parse(
         "kernel: mo20\niterate: 20\ninput float: a(64, *)\n"
         "output float: b(0,0) = (a(-1,0) + a(0,0) + a(1,0)) / 3.0f\n"
         "output float: r(0,0) = b(0,0) - a(0,0)\n")
-    from soda_tpu.plan.planner import plan as make_plan
-    pl = make_plan(q, (64, 128), sweeps=20)
-    assert pl.groups[0].sweeps == 20 and not pl.groups[0].trapezoid
     xq = rng.standard_normal((64, 128)).astype(np.float32)
     gold_q = numpy_interp.run(q, {"a": xq})
-    fn = pallas_backend.build_fn(q, the_plan=pl, interpret=True)
-    import jax.numpy as jnp
-    outs = fn({"a": jnp.asarray(xq)}, {})
-    check(q, {k: np.asarray(v) for k, v in outs.items()}, gold_q)
+    check(q, xla_backend.run(q, {"a": xq}), gold_q)
 
 
 def test_unroll_iterate_equivalence():
@@ -293,12 +264,11 @@ def test_unroll_iterate_equivalence():
     gold = numpy_interp.run(p, {"t0": x})
     got_interp = numpy_interp.run(q, {"t0": x})
     check(p, {"t1": got_interp["t1"]}, gold)
-    got_pallas = pallas_backend.run(q, {"t0": x}, interpret=True)
-    check(p, got_pallas, gold)
+    check(p, xla_backend.run(q, {"t0": x}), gold)
     # partial unroll: 2 sweeps per copy-chain, iterate 4 remains
     h = unroll_iterate(p, 2)
     assert h.iterate == 4 and len(h.stage_order()) == 2
-    got_h = pallas_backend.run(h, {"t0": x}, interpret=True)
+    got_h = xla_backend.run(h, {"t0": x})
     check(p, got_h, gold)
 
 
@@ -320,8 +290,8 @@ def test_operator_coverage_program():
     gold = numpy_interp.run(p, {"a": x})
     rim = p.valid_rim()
     got_x = xla_backend.run(p, {"a": x})
-    got_p = pallas_backend.run(p, {"a": x}, interpret=True)
-    for got in (got_x, got_p):
+    got_t = run_host_tiled(p, {"a": x}, tiles=(16, 24))
+    for got in (got_x, got_t):
         g = interior(got["out"], rim).astype(np.float64)
         e = interior(gold["out"], rim).astype(np.float64)
         # float->int truncation may differ by 1 ulp at exact boundaries
@@ -329,42 +299,33 @@ def test_operator_coverage_program():
         assert np.max(np.abs(g - e)) <= 1
 
 
-def test_strips_nondivisible_q_aligned_grid():
-    """Strips with a q-aligned but non-block-divisible grid: the clamped
-    last block overlaps and recomputes idempotently."""
-    from soda_tpu.plan.planner import plan as make_plan
+def test_host_tile_nondivisible_grid():
+    """Tiles that do not divide the grid: the clipped last tile stitches
+    only its real rows."""
     p = parse_file(SODA / "jacobi2d.soda")
-    shape = (200, 384)  # 200 = 8*25, not divisible by big blocks
-    pl_ = make_plan(p, shape)
-    assert pl_.groups[0].strategy == "strips", pl_.describe()
-    assert pl_.groups[0].block[0] * pl_.groups[0].grid[0] >= 200
+    shape = (200, 384)
     x = rng.standard_normal(shape).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
-    got = pallas_backend.run(p, {"t0": x}, interpret=True)
-    check(p, got, gold)
+    check(p, run_host_tiled(p, {"t0": x}, tiles=(64, 384)), gold)
 
 
-def test_sweeps_nondivisor_adjusted_not_underexecuted():
-    """Requested sweeps that don't divide iterate must be adjusted, never
-    silently under-executing sweeps (iterate=10, sweeps=3 -> 9 bug)."""
-    from soda_tpu.frontend.parser import parse
-    from soda_tpu.plan.planner import plan as make_plan
+def test_sweeps_per_pass_must_divide_iterate():
+    """A pass depth that does not divide iterate would silently
+    under-execute sweeps (iterate=10, 3 per pass -> 9): refused; a divisor
+    runs every sweep."""
     p = parse(
         "kernel: t\niterate: 10\ninput float: a(64, *)\n"
         "output float: b(0,0) = (a(-1,0) + a(0,0) + a(1,0)) / 3.0f\n")
-    pl = make_plan(p, (64, 128), sweeps=3)
-    assert 10 % pl.groups[0].sweeps == 0
     x = rng.standard_normal((64, 128)).astype(np.float32)
+    with pytest.raises(ValueError, match="must divide iterate"):
+        run_host_tiled(p, {"a": x}, tiles=(32, 128), sweeps_per_pass=3)
     gold = numpy_interp.run(p, {"a": x})
-    fn = pallas_backend.build_fn(p, the_plan=pl, interpret=True)
-    import jax.numpy as jnp
-    got = {"b": np.asarray(fn({"a": jnp.asarray(x)}, {})["b"])}
-    check(p, got, gold)
+    check(p, run_host_tiled(p, {"a": x}, tiles=(32, 128),
+                            sweeps_per_pass=5), gold)
 
 
 def test_output_consumed_within_group():
-    """A program output read by another stage in the same fused group must
-    write only its block (it materializes at an extended span)."""
+    """A program output read by another stage of the same sweep."""
     from soda_tpu.frontend.parser import parse
     p = parse(
         "kernel: t\ninput float: a(64, *)\n"
@@ -372,8 +333,8 @@ def test_output_consumed_within_group():
         "output float: o2(0,0) = (o1(0,-1) + o1(0,0) + o1(0,1)) / 3.0f\n")
     x = rng.standard_normal((48, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"a": x})
-    got = pallas_backend.run(p, {"a": x}, interpret=True)
-    check(p, got, gold)
+    check(p, xla_backend.run(p, {"a": x}), gold)
+    check(p, run_host_tiled(p, {"a": x}, tiles=(16, 64)), gold)
 
 
 def test_float_mod_and_round_c_semantics():
@@ -396,23 +357,20 @@ def test_float_mod_and_round_c_semantics():
         assert np.array_equal(got_c["r"], gold["r"]), (got_c["r"], gold["r"])
 
 
-def test_wide_int_runs_on_tpu_path():
-    """Updated for the in-kernel wide mode: int64 no longer rejects — the
-    Pallas path runs it bit-exactly via pair carriers (tiny grid exercises
-    the rank-1-like small-block plumbing too)."""
-    from soda_tpu.frontend.parser import parse
+def test_wide_int_runs_on_xla_path():
+    """int64 runs native under x64 on the XLA path, bit-exactly (a tiny
+    grid of 2 rows)."""
     p = parse("kernel: t\ninput int64: a(8, *)\noutput int64: b(0,0) = a(0,0) + 1\n")
     x = np.arange(16, dtype=np.int64).reshape(2, 8)
     out = numpy_interp.run(p, {"a": x})["b"]
     assert out.dtype == np.int64
-    got = pallas_backend.run(p, {"a": x}, interpret=True)["b"]
+    got = xla_backend.run(p, {"a": x})["b"]
     assert got.dtype == np.int64 and np.array_equal(got, out)
 
 
 def test_xla_wide_mode_64bit():
-    """Round 2 (VERDICT missing #3): >32-bit programs run on the TPU-path
-    XLA backend in wide mode — exact uint64 (value-dependent ops above
-    2^63) and emulated float64 well beyond f32 precision."""
+    """>32-bit programs run on the XLA backend in wide mode — exact
+    uint64 (value-dependent ops above 2^63) and native float64."""
     from soda_tpu.backend import xla as xb
 
     src = (
@@ -438,15 +396,14 @@ def test_xla_wide_mode_64bit():
     g2 = numpy_interp.run(p2, {"a": x})["out"]
     t2 = xb.run(p2, {"a": x})["out"]
     assert t2.dtype == np.float64
-    # far beyond f32 (~1e-7); XLA's f64 emulation is ~1e-14 on TPU
+    # far beyond f32 (~1e-7)
     assert np.abs(g2[:, 1:-1] - t2[:, 1:-1]).max() < 1e-12
 
 
-def test_pallas_wide_tensors_run_in_kernel():
-    """Round 2 (TODO '64-bit on the Pallas path'): user int64 tensors run
-    IN-KERNEL via paired-32-bit carriers (interp/wide64), bit-exact vs
-    the int64 oracle — no longer rejected to the XLA backend."""
-    from soda_tpu.backend import pallas as pb
+def test_wide_tensors_on_mesh_pair_path():
+    """User int64 tensors shard as paired-32-bit carriers (interp/wide64)
+    on the mesh, bit-exact vs the int64 oracle."""
+    from soda_tpu.parallel.mesh import run_sharded
 
     src = (
         "kernel: wide\n"
@@ -454,20 +411,19 @@ def test_pallas_wide_tensors_run_in_kernel():
         "output int64: out(0, 0) = a(0, 0) * a(0, 1) + (a(0, -1) >> 7)\n"
     )
     p = parse(src)
-    pb.check_tpu_supported(p)  # must not raise
     x = rng.integers(-2**50, 2**50, (16, 128)).astype(np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True)["out"]
+    got = run_sharded(p, {"a": x}, axis_sizes=[4], dims=[0])["out"]
     assert got.dtype == np.int64
     assert np.array_equal(gold[:, 1:-1], got[:, 1:-1])
 
 
-def test_pallas_wide_params_run_in_kernel():
-    """Round 2: >32-bit PARAMS also ride pair carriers — a uint64 param
-    above 2^32 reaches the kernel exactly (it would have truncated under
-    the old int32 param cast)."""
-    from soda_tpu.backend import pallas as pb
+def test_wide_params_on_mesh_pair_path():
+    """>32-bit PARAMS cross the shard boundary as plane pairs — a uint64
+    param above 2^32 arrives exactly (an int32 cast would truncate it) —
+    and natively on the XLA path."""
     from soda_tpu.interp.wide64 import program_is_wide
+    from soda_tpu.parallel.mesh import run_sharded
 
     src = (
         "kernel: wp\n"
@@ -480,19 +436,18 @@ def test_pallas_wide_params_run_in_kernel():
     x = rng.integers(0, 60000, (16, 128)).astype(np.uint16)
     k = np.uint64(10_000_000_019)  # > 2^32
     gold = numpy_interp.run(p, {"a": x}, {"k": k})["out"]
-    got = pb.run(p, {"a": x}, {"k": k}, interpret=True)["out"]
-    assert got.dtype == np.uint64
-    assert np.array_equal(gold[:, 1:-1], got[:, 1:-1])
+    for got in (run_sharded(p, {"a": x}, {"k": k}, axis_sizes=[2],
+                            dims=[0])["out"],
+                xla_backend.run(p, {"a": x}, {"k": k})["out"]):
+        assert got.dtype == np.uint64
+        assert np.array_equal(gold[:, 1:-1], got[:, 1:-1])
 
 
 def test_mixed_sign_chain_constant_extent_margins():
     """Extended-fuzz finding: a stage reading its parent at +z consumed at
-    -z does NOT cancel under constant-extent evaluation (line-buffer
-    slabs, rim slabs, mesh sweeps) — margins must use the non-cancelling
-    chain creep.  This multi-block 3-D case was wrong at every block
-    boundary row before the fix."""
-    from soda_tpu.backend import pallas as pb
-
+    -z does NOT cancel under constant-extent evaluation (host tiles, mesh
+    sweeps) — halos must use the non-cancelling chain creep.  This
+    multi-tile 3-D case is wrong at every tile boundary row without it."""
     src = (
         "kernel: mc\n"
         "input float: a(64, 64, *)\n"
@@ -503,7 +458,7 @@ def test_mixed_sign_chain_constant_extent_margins():
     assert p.chain_creep()[0] == (-2, 3)   # vs composed span (-1, 3)
     x = np.random.default_rng(1).standard_normal((32, 16, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True, vmem_budget=2 * 2**20)["out"]
+    got = run_host_tiled(p, {"a": x}, tiles=(8, 16, 128))["out"]
     r = p.valid_rim()
     sl = tuple(slice(r, -r) for _ in range(3))
     assert np.allclose(gold[sl], got[sl], rtol=1e-5, atol=1e-6)
@@ -529,53 +484,16 @@ def test_mixed_sign_chain_sharded():
     assert np.allclose(gold[sl], got[sl], rtol=1e-5, atol=1e-6)
 
 
-def test_f16_bit_converters_exhaustive():
-    """Round 2 (half 2 B/cell streaming): the in-kernel IEEE f16
-    decode/encode (backend/pallas.py f16_bits_*) are BIT-exact vs numpy
-    over all 65536 f16 patterns (decode) and RNE-exact for encode incl.
-    subnormals, overflow->inf and exact-value roundtrips."""
-    import warnings
-
-    import jax.numpy as jnp
-
-    from soda_tpu.backend.pallas import f16_bits_decode, f16_bits_encode
-
-    u = np.arange(65536, dtype=np.uint16)
-    want = u.view(np.float16).astype(np.float32)
-    got = np.asarray(f16_bits_decode(jnp.asarray(u)))
-    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
-
-    f = np.concatenate([
-        (rng.standard_normal(100000)
-         * 10.0 ** rng.integers(-8, 8, 100000)).astype(np.float32),
-        np.array([0.0, -0.0, np.inf, -np.inf, 65504.0, 65520.0,
-                  6e-8, 5.96e-8, -6e-8, 1e-45], np.float32),
-        u.view(np.float16).astype(np.float32),
-    ])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # overflow-to-inf in the ref cast
-        want_e = f.astype(np.float16).view(np.uint16).astype(np.uint32)
-    got_e = np.asarray(f16_bits_encode(jnp.asarray(f)))
-    nm = np.isnan(f)
-    assert np.array_equal(got_e[~nm], want_e[~nm])
-    assert np.all((got_e[nm] & 0x7C00) == 0x7C00)  # NaN stays NaN
-    assert np.all((got_e[nm] & 0x3FF) != 0)
-
-
-def test_half_streams_2_bytes():
-    """half plans at 2 B/cell (uint16 f16-bit streaming) and the kernel
-    output matches the oracle at f16 scale; hardware-verified this round
-    (512^2 linebuffer, maxdiff 2e-3 = per-op-f16 vs f32-compute)."""
-    from soda_tpu.plan.planner import plan
+def test_half_program_xla_and_report():
+    """half tensors store f16 (2 B/cell in the ideal traffic) and the XLA
+    path matches the oracle at f16 scale."""
+    from soda_tpu.utils.report import analyze
 
     p = parse_file(SODA / "smooth_half.soda")
-    pl = plan(p, (2048, 2048))
-    g = pl.groups[0]
-    bpc = g.hbm_bytes_per_call / max(g.useful_cells_per_call, 1)
-    assert bpc < 5.0  # 2 B in + 2 B out (+ alignment); was 8+ at f32 io
+    assert analyze(p, (2048, 2048)).ideal_bytes_per_cell_sweep == 4.0
     x = rng.standard_normal((64, 128)).astype(np.float16)
     gold = numpy_interp.run(p, {"h_in": x})["h_out"]
-    got = pallas_backend.run(p, {"h_in": x}, interpret=True)["h_out"]
+    got = xla_backend.run(p, {"h_in": x})["h_out"]
     assert got.dtype == np.float16
     r = p.valid_rim()
     d = np.abs(gold[r:-r, r:-r].astype(np.float32)

@@ -166,7 +166,7 @@ def test_comments_and_blank_lines():
 
 def test_syntax_error_names_location():
     """Malformed .soda (e.g. missing ':') gets a friendly error naming the
-    line and column, not a raw lark exception."""
+    line and column, not a raw parser exception."""
     with pytest.raises(ValueError, match="syntax error at line 1"):
         parse("kernel blur\ninput float: a(*)\noutput float: b(0) = a(0)\n")
 
@@ -196,3 +196,68 @@ def test_uint256_rejected_with_documented_message():
         parse(src)
     p = parse(src.replace("uint256", "uint128"))  # 128 parses
     assert p.tensors["a"].type.width == 128
+
+
+def _to_source(p) -> str:
+    """Print a StencilProgram back as `.soda` text (stage expressions via
+    their str(), anchors normalized to zero)."""
+    lines = [f"kernel: {p.name}", f"burst width: {p.burst_width}",
+             f"iterate: {p.iterate}", f"unroll factor: {p.unroll_factor}",
+             f"border: {p.border}", f"cluster: {p.cluster}"]
+    for q in p.params.values():
+        attrs = f", dup {q.dup}" if q.dup is not None else ""
+        if q.partition is not None:
+            kind, _, factor = q.partition.partition(":")
+            attrs += f", partition {kind}" + (
+                f" factor = {factor}" if factor else "")
+        lines.append(f"param {q.type}{attrs}: {q.name}"
+                     + "".join(f"[{d}]" for d in q.shape))
+    for n, t in p.tensors.items():
+        dram = "dram " + ", ".join(map(str, t.dram)) + " "
+        if t.is_input:
+            tiles = ", ".join("*" if d is None else str(d)
+                              for d in t.tile_size)
+            lines.append(f"input {dram}{t.type}: {n}({tiles})")
+        else:
+            anchor = ", ".join(["0"] * p.rank)
+            kind = f"output {dram}" if t.is_output else "local "
+            lines.append(f"{kind}{t.type}: {n}({anchor}) = {t.expr}")
+    return "\n".join(lines) + "\n"
+
+
+def _fields(p):
+    return (p.name, p.rank, p.burst_width, p.iterate, p.unroll_factor,
+            p.border, p.cluster, p.tensors, p.params)
+
+
+@pytest.mark.parametrize("path", CORPUS,
+                         ids=[pathlib.Path(c).stem for c in CORPUS])
+def test_parse_print_roundtrip(path):
+    """parse -> print (str of every expression) -> parse gives an equal
+    program: precedence, unary minus, casts, refs vs calls and param
+    subscripts all survive the round trip."""
+    p = parse_file(path)
+    q = parse(_to_source(p))
+    assert _fields(q) == _fields(p)
+    assert _to_source(q) == _to_source(p)
+
+
+def test_keywords_as_names_and_attributes():
+    """Statement keywords are legal tensor names; param attributes and
+    dram lists parse."""
+    p = parse("kernel: output\ninput dram 0, 1 uint16: input(8, *)\n"
+              "param float, dup 2, partition cyclic factor = 4: c[2][3]\n"
+              "output dram 2 uint16: output(0, 0) = input(0, 1) + "
+              "uint16(c[1][2])\n")
+    assert p.name == "output"
+    assert p.tensors["input"].dram == (0, 1)
+    assert p.tensors["output"].dram == (2,)
+    assert p.params["c"].shape == (2, 3)
+    assert p.params["c"].dup == 2
+    assert p.params["c"].partition == "cyclic:4"
+
+
+def test_syntax_error_at_end_of_input():
+    """Truncated input points past the end of the last line."""
+    with pytest.raises(ValueError, match="line 3, column 23"):
+        parse("kernel: t\ninput float: a(8, *)\noutput float: b(0,0) =")

@@ -1,6 +1,6 @@
 """Property-based cross-backend fuzzing: random stencil programs must
-agree across NumPy oracle, XLA backend, Pallas (interpret), and the
-generated C++ golden runner.
+agree across NumPy oracle, the XLA backend (whole grid and host-tiled),
+and the generated C++ golden runner.
 
 Seeded and deterministic.  Programs are generated from a small grammar of
 safe expressions (no division by dynamic values; bounded tap radii)."""
@@ -14,8 +14,8 @@ import pytest
 from soda_tpu.frontend.parser import parse
 from soda_tpu.interp import numpy_interp
 from soda_tpu.backend import xla as xla_backend
-from soda_tpu.backend import pallas as pallas_backend
 from soda_tpu.backend import cpp as cpp_backend
+from soda_tpu.parallel.host_tile import run_host_tiled
 
 
 def gen_program(rng: random.Random, rank: int) -> str:
@@ -107,11 +107,11 @@ def test_fuzz_backends_agree(seed, rank):
                        interior(gold, rim).astype(np.float64),
                        rtol=1e-4, atol=1e-4), f"xla mismatch:\n{src}"
 
-    got_p = pallas_backend.run(p, {"a": x}, interpret=True,
-                               vmem_budget=2 * 2**20)["out"]
-    assert np.allclose(interior(got_p, rim).astype(np.float64),
+    tiles = tuple(max(n // 2, 1) for n in shape)
+    got_t = run_host_tiled(p, {"a": x}, tiles=tiles)["out"]
+    assert np.allclose(interior(got_t, rim).astype(np.float64),
                        interior(gold, rim).astype(np.float64),
-                       rtol=1e-4, atol=1e-4), f"pallas mismatch:\n{src}"
+                       rtol=1e-4, atol=1e-4), f"host-tile mismatch:\n{src}"
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -192,8 +192,7 @@ def test_fuzz_two_inputs(seed):
     b = rnp.standard_normal((32, 48)).astype(np.float32)
     gold = numpy_interp.run(p, {"a": a, "b": b})["out"]
     rim = p.valid_rim()
-    got = pallas_backend.run(p, {"a": a, "b": b}, interpret=True,
-                             vmem_budget=2 * 2**20)["out"]
+    got = run_host_tiled(p, {"a": a, "b": b}, tiles=(16, 48))["out"]
     assert np.allclose(interior(got, rim).astype(np.float64),
                        interior(gold, rim).astype(np.float64),
                        rtol=1e-4, atol=1e-4), f"two-input mismatch:\n{src}"
@@ -201,9 +200,8 @@ def test_fuzz_two_inputs(seed):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_fuzz_unaligned_grids(seed):
-    """Round 2: random (often non-8/16-aligned) grid shapes must match the
-    oracle — exercises the aligned-core + XLA-rim hybrid, strips clamping,
-    and the padded-windows fallback, whichever the planner picks."""
+    """Random (often non-power-of-two) grid shapes must match the oracle,
+    whole grid and in host tiles that do not divide the grid."""
     rng = random.Random(3000 + seed)
     rank = rng.choice([2, 3])
     src = gen_program(rng, rank)
@@ -216,25 +214,25 @@ def test_fuzz_unaligned_grids(seed):
     x = make_input(p, shape, np.random.default_rng(seed))
     gold = numpy_interp.run(p, {"a": x})["out"]
     rim = p.valid_rim()
-    got = pallas_backend.run(p, {"a": x}, interpret=True,
-                             vmem_budget=2 * 2**20)["out"]
     ga = interior(gold, rim)
     if ga.size == 0:
         pytest.skip("grid smaller than rim")
-    assert np.allclose(interior(got, rim).astype(np.float64),
-                       ga.astype(np.float64),
-                       rtol=1e-4, atol=1e-4), f"unaligned {shape}:\n{src}"
+    tiles = tuple(n // 3 + 1 for n in shape)
+    for got in (xla_backend.run(p, {"a": x})["out"],
+                run_host_tiled(p, {"a": x}, tiles=tiles)["out"]):
+        assert np.allclose(interior(got, rim).astype(np.float64),
+                           ga.astype(np.float64), rtol=1e-4, atol=1e-4), \
+            f"unaligned {shape}:\n{src}"
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_trapezoid_iterate(seed):
-    """Random programs iterated 2-8 sweeps (trapezoid schedule) must match
-    the oracle's sweep-by-sweep feedback."""
+    """Random programs iterated 2-16 sweeps must match the oracle's
+    sweep-by-sweep feedback, in one scan and over host passes."""
     rng = random.Random(4000 + seed)
     src = gen_program(rng, 2)
     # the feedback requires matching in/out types; gen_program reuses one
-    # type everywhere so any generated program qualifies.  Depths 9-16
-    # exercise the raised TRAPEZOID_MAX_SWEEPS (round 2).
+    # type everywhere so any generated program qualifies
     it = rng.randint(2, 16)
     p = parse(src)
     shape = (64, 64) if it <= 8 else (128, 128)
@@ -244,11 +242,13 @@ def test_fuzz_trapezoid_iterate(seed):
     ga = interior(gold, rim)
     if ga.size == 0:
         pytest.skip("grid smaller than iterated rim")
-    got = pallas_backend.run(p, {"a": x}, interpret=True,
-                             iterate=it)["out"]
-    assert np.allclose(interior(got, rim).astype(np.float64),
-                       ga.astype(np.float64),
-                       rtol=1e-3, atol=1e-3), f"iterate={it}:\n{src}"
+    spp = min(k for k in range(2, it + 1) if it % k == 0)
+    for got in (xla_backend.run(p, {"a": x}, iterate=it)["out"],
+                run_host_tiled(p, {"a": x}, tiles=(shape[0] // 2, 0),
+                               iterate=it, sweeps_per_pass=spp)["out"]):
+        assert np.allclose(interior(got, rim).astype(np.float64),
+                           ga.astype(np.float64),
+                           rtol=1e-3, atol=1e-3), f"iterate={it}:\n{src}"
 
 
 def gen_weighted_program(rng: random.Random) -> str:
@@ -321,7 +321,7 @@ def gen_minmax_program(rng: random.Random) -> str:
 @pytest.mark.parametrize("seed", range(10))
 def test_fuzz_minmax_tcse_bit_exact(seed):
     """min/max reuse on random reduction trees: bit-exact, never an
-    op-count regression, and still exact through the Pallas backend."""
+    op-count regression, and still exact through the XLA backend."""
     from soda_tpu.optimize import tcse
 
     rng = random.Random(8000 + seed)
@@ -336,9 +336,9 @@ def test_fuzz_minmax_tcse_bit_exact(seed):
     rim = max(p.valid_rim(), q.valid_rim())
     assert np.array_equal(interior(a, rim), interior(b, rim)), \
         f"minmax tcse mismatch:\n{src}"
-    got = pallas_backend.run(q, {"a": x}, interpret=True)["out"]
+    got = xla_backend.run(q, {"a": x})["out"]
     assert np.array_equal(interior(a, rim), interior(got, rim)), \
-        f"minmax pallas mismatch:\n{src}"
+        f"minmax xla mismatch:\n{src}"
 
 
 def gen_signed_chain(rng: random.Random, rank: int) -> str:
@@ -362,8 +362,8 @@ def gen_signed_chain(rng: random.Random, rank: int) -> str:
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_mixed_sign_chains(seed):
-    """Mixed-sign stage chains through multi-block linebuffer/strips plans
-    and iterate — guards the non-cancelling chain-creep margins."""
+    """Mixed-sign stage chains through multi-tile host tiling and iterate —
+    guards the non-cancelling chain-creep halos."""
     rng = random.Random(1500 + seed)
     rank = rng.choice([2, 3])
     src = gen_signed_chain(rng, rank)
@@ -376,8 +376,9 @@ def test_fuzz_mixed_sign_chains(seed):
     ga = interior(gold, rim)
     if ga.size == 0:
         pytest.skip("rim exceeds grid")
-    got = pallas_backend.run(p, {"a": x}, interpret=True, iterate=it,
-                             vmem_budget=2 * 2**20)["out"]
+    tiles = tuple(n // 2 for n in shape)
+    got = run_host_tiled(p, {"a": x}, tiles=tiles, iterate=it,
+                         sweeps_per_pass=1)["out"]
     assert np.allclose(interior(got, rim).astype(np.float64),
                        ga.astype(np.float64),
                        rtol=1e-3, atol=1e-3), f"mixed-sign:\n{src}"
@@ -388,8 +389,6 @@ def test_fuzz_host_tiling(seed):
     """Random programs (incl. mixed-sign chains) through the host-side
     sequential tiling path with random tile shapes and pass cadences —
     guards the tile halo/stitch geometry (parallel/host_tile.py)."""
-    from soda_tpu.parallel.host_tile import run_host_tiled
-
     rng = random.Random(2500 + seed)
     rank = rng.choice([2, 3])
     src = (gen_signed_chain(rng, rank) if rng.random() < 0.5
@@ -408,8 +407,7 @@ def test_fuzz_host_tiling(seed):
     if ga.size == 0:
         pytest.skip("rim exceeds grid")
     got = run_host_tiled(p, {"a": x}, tiles=tiles, iterate=it,
-                         sweeps_per_pass=spp, interpret=True,
-                         vmem_budget=2 * 2**20)["out"]
+                         sweeps_per_pass=spp)["out"]
     assert np.allclose(interior(got, rim).astype(np.float64),
                        ga.astype(np.float64), rtol=1e-3, atol=1e-3), \
         f"host-tile mismatch (tiles={tiles}, spp={spp}, it={it}):\n{src}"

@@ -2,8 +2,8 @@
 oracle: the single-chip answer to grids larger than device HBM — the
 reference host's overlapping-tile loop (SURVEY.md §2.1 host-codegen row).
 
-Runs in Pallas interpret mode on CPU; the at-size hardware pass lives in
-scripts/tpu_check.py."""
+The at-size run on the GPU (jacobi3d 1024^3 under a 1 GiB budget) is
+phase 4 of chip_smoke.py."""
 
 import pathlib
 
@@ -43,9 +43,9 @@ CASES = [
     ("jacobi3d.soda", (20, 30, 140), (8, 16, 70), {}),  # 3-D
     ("denoise3d.soda", (16, 24, 140), (8, 12, 70), {}),  # 3-D multi-stage
     ("residual2d.soda", (40, 150), (20, 80), {}),      # multi-output iterate
-    ("smooth1d.soda", (700,), (256,), {}),             # rank-1 lift
-    ("accum64.soda", (48, 160), (24, 80), {}),         # wide pair carriers
-    ("smooth_half.soda", (48, 160), (24, 80), {}),     # f16 bit streaming
+    ("smooth1d.soda", (700,), (256,), {}),             # rank 1
+    ("accum64.soda", (48, 160), (24, 80), {}),         # 64-bit (x64)
+    ("smooth_half.soda", (48, 160), (24, 80), {}),     # half
 ]
 
 
@@ -54,7 +54,7 @@ CASES = [
 def test_host_tile_matches_oracle(name, gs, tiles, kw):
     p = parse_file(SODA / name)
     ins, ps = _inputs(p, gs)
-    got = run_host_tiled(p, ins, ps, tiles=tiles, interpret=True, **kw)
+    got = run_host_tiled(p, ins, ps, tiles=tiles, **kw)
     gold = numpy_interp.run(p, ins, ps)
     _check(p, got, gold)
 
@@ -66,8 +66,7 @@ def test_single_pass_cadence_bit_exact_everywhere():
     p = parse_file(SODA / "erode2d.soda")
     gs = (40, 150)
     ins, ps = _inputs(p, gs)
-    got = run_host_tiled(p, ins, ps, tiles=(16, 64), sweeps_per_pass=1,
-                         interpret=True)
+    got = run_host_tiled(p, ins, ps, tiles=(16, 64), sweeps_per_pass=1)
     gold = numpy_interp.run(p, ins, ps)
     _check(p, got, gold, rim=0)
 
@@ -77,7 +76,7 @@ def test_uneven_edge_tiles():
     p = parse_file(SODA / "blur.soda")
     gs = (67, 201)
     ins, ps = _inputs(p, gs)
-    got = run_host_tiled(p, ins, ps, tiles=(32, 96), interpret=True)
+    got = run_host_tiled(p, ins, ps, tiles=(32, 96))
     gold = numpy_interp.run(p, ins, ps)
     _check(p, got, gold)
 
@@ -104,7 +103,7 @@ def test_plan_geometry():
 
 def test_choose_host_tiles_fits_budget():
     p = parse_file(SODA / "jacobi3d.soda")
-    gs = (2048, 2048, 2048)  # 32 GiB f32 x (in+out): cannot fit a v5e
+    gs = (2048, 2048, 2048)  # 32 GiB f32 x (in+out): beyond one card
     tiles = choose_host_tiles(p, gs, 12 * 2**30)
     assert tiles[-1] == gs[-1]  # lane dim never cut
     _, _, ext, _, _, _, _ = plan_host_tiling(p, gs, tiles)
@@ -179,8 +178,7 @@ def test_host_tile_over_mesh():
     gs = (64, 192)
     ins, ps = _inputs(p, gs)
     mesh = make_mesh([4], ["x"])
-    got = run_host_tiled(p, ins, ps, tiles=(32, 96), mesh=mesh,
-                         interpret=True)
+    got = run_host_tiled(p, ins, ps, tiles=(32, 96), mesh=mesh)
     gold = numpy_interp.run(p, ins, ps)
     _check(p, got, gold)
 
@@ -195,34 +193,26 @@ def test_host_tile_over_mesh_wide():
     gs = (48, 160)
     ins, ps = _inputs(p, gs)
     mesh = make_mesh([2, 2], ["x", "y"])
-    got = run_host_tiled(p, ins, ps, tiles=(24, 80), mesh=mesh,
-                         interpret=True)
+    got = run_host_tiled(p, ins, ps, tiles=(24, 80), mesh=mesh)
     gold = numpy_interp.run(p, ins, ps)
     _check(p, got, gold)
 
 
-def test_kernel_sweeps_not_dividing_pass_is_snapped():
-    """Review r5 (confirmed bug): a requested kernel sweep depth that
-    does not divide sweeps_per_pass used to silently under-execute
-    (iterate=12, spp=6, sweeps=4 -> 2 passes x 4 sweeps = 8 of 12).
-    The planner now snaps the request to a divisor of the EFFECTIVE
-    per-pass count (plan(iterate=...)); results must match the oracle."""
+def test_pass_depth_dividing_iterate():
+    """iterate=12 in passes of 6 sweeps: every one of the 12 sweeps runs
+    (2 passes x 6) and matches the oracle."""
     p = parse_file(SODA / "jacobi2d.soda")
     gs = (48, 160)
     ins, ps = _inputs(p, gs)
     gold = numpy_interp.run(p, ins, ps, iterate=12)
     got = run_host_tiled(p, ins, ps, tiles=(24, 80), iterate=12,
-                         sweeps_per_pass=6, sweeps=4, interpret=True)
+                         sweeps_per_pass=6)
     _check(p, got, gold, rim=p.valid_rim(iterate=12))
 
 
-def test_build_fn_rejects_non_divisor_plan():
-    """A caller-provided plan whose kernel depth does not divide the
-    executed iterate raises instead of silently under-executing."""
-    from soda_tpu.backend import pallas as pb
-    from soda_tpu.plan.planner import plan as make_plan
-
+def test_plan_rejects_non_divisor_pass():
+    """A pass depth that does not divide the executed iterate raises
+    instead of silently under-executing."""
     p = parse_file(SODA / "jacobi2d.soda")
-    pl = make_plan(p, (48, 160), sweeps=4)  # 4 divides DSL iterate 8
-    with pytest.raises(ValueError, match="does not divide"):
-        pb.build_fn(p, the_plan=pl, iterate=6, interpret=True)
+    with pytest.raises(ValueError, match="must divide iterate"):
+        plan_host_tiling(p, (48, 160), (24, 80), sweeps_per_pass=6)

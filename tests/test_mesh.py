@@ -2,7 +2,8 @@
 shard_map + ppermute halo exchange vs the NumPy oracle.
 
 (The conftest forces an 8-device CPU platform; the same code path runs on
-a real ICI mesh — device count and axis shape are parameters.)"""
+the cards of one host over NVLink — device count and axis shape are
+parameters.  `chip_smoke.py --four-cards` runs it on four GPUs.)"""
 
 import pathlib
 
@@ -117,22 +118,20 @@ def test_sharded_heat3d_iterate4():
     check(p, got, gold)
 
 
-def test_sharded_pallas_local_backend():
-    """Per-device Pallas kernels under shard_map (interpret on CPU sim)."""
+def test_sharded_3d_along_z():
+    """jacobi3d sharded along z over 4 devices."""
     p = parse_file(SODA / "jacobi3d.soda")
     x = rng.standard_normal((16, 32, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
-    got = run_sharded(p, {"t0": x}, axis_sizes=[4], dims=[0],
-                      local_backend="pallas", interpret=True)
+    got = run_sharded(p, {"t0": x}, axis_sizes=[4], dims=[0])
     check(p, got, gold)
 
 
-def test_sharded_pallas_iterate():
+def test_sharded_iterate_cadence_2():
     p = parse_file(SODA / "jacobi2d.soda")
     x = rng.standard_normal((64, 96)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
     got = run_sharded(p, {"t0": x}, axis_sizes=[4], dims=[0],
-                      local_backend="pallas", interpret=True,
                       sweeps_per_exchange=2)
     check(p, got, gold)
 
@@ -140,7 +139,8 @@ def test_sharded_pallas_iterate():
 def test_sharded_multi_output_iterate():
     """Multi-output iterate over the mesh (docs/SEMANTICS.md): feedback =
     first-input <- FIRST-declared output, the residual output takes its
-    final-sweep value — on both local backends, with a chunked cadence."""
+    final-sweep value — exchanging every sweep and with a chunked
+    cadence."""
     p = parse_file(SODA / "residual2d.soda")
     x = rng.standard_normal((64, 96)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
@@ -148,7 +148,6 @@ def test_sharded_multi_output_iterate():
     got = run_sharded(p, {"t0": x}, axis_sizes=[8])
     check(p, got, gold)
     got2 = run_sharded(p, {"t0": x}, axis_sizes=[4], dims=[0],
-                       local_backend="pallas", interpret=True,
                        sweeps_per_exchange=2)
     check(p, got2, gold)
 
@@ -196,10 +195,10 @@ def test_sharded_aux_input_chunked():
     check(p, got, gold)
 
 
-def test_overlap_mode_2d_mesh_and_pallas():
-    """Round 2 (VERDICT #9): overlap mode generalized to 2-D meshes and the
-    Pallas local backend — identical results to the synchronous path and
-    the oracle (corners exact via halo-carrying strip slabs)."""
+def test_overlap_mode_2d_mesh_and_3d():
+    """Overlap mode on 1-D and 2-D meshes — identical results to the
+    synchronous path and the oracle (corners exact via halo-carrying
+    strip slabs)."""
     p = parse_file(SODA / "jacobi2d.soda")
     shape = (64, 64, )
     x = rng.standard_normal(shape).astype(np.float32)
@@ -211,18 +210,16 @@ def test_overlap_mode_2d_mesh_and_pallas():
     for k in sync:
         assert np.allclose(sync[k], over[k], rtol=1e-6, atol=1e-6)
     check(p, over, gold)
-    # 1-D mesh, pallas local backend (interpret on the CPU sim)
-    overp = run_sharded(p, ins, axis_sizes=[4], dims=[0], overlap=True,
-                        local_backend="pallas", interpret=True)
+    # 1-D mesh
+    overp = run_sharded(p, ins, axis_sizes=[4], dims=[0], overlap=True)
     check(p, overp, gold)
-    # 2-D mesh + pallas + iterate with chunked exchange on a 3D program
+    # 2-D mesh + iterate exchanging every sweep on a 3D program
     p3 = parse_file(SODA / "heat3d.soda")
     x3 = rng.standard_normal((32, 32, 128)).astype(np.float32)
     ins3 = {p3.input_names[0]: x3}
     gold3 = numpy_interp.run(p3, ins3)
     over3 = run_sharded(p3, ins3, axis_sizes=[2, 2], dims=[0, 1],
-                        overlap=True, local_backend="pallas",
-                        interpret=True, sweeps_per_exchange=1)
+                        overlap=True, sweeps_per_exchange=1)
     check(p3, over3, gold3)
 
 
@@ -249,10 +246,8 @@ def test_multihop_halo_exchange():
 
 def test_mesh_wide_i64_bit_exact():
     """64-bit programs shard as plane pairs — per-plane ppermute halo
-    exchange + pair-carrier local compute — bit-exact vs the int64 oracle.
-    Round 3: the Pallas LOCAL backend traces too (W pair carriers are a
-    pytree), so wide shards get Pallas-quality local compute under
-    shard_map — also bit-exact."""
+    exchange + pair-carrier local compute — bit-exact vs the int64 oracle,
+    at the auto cadence and exchanging every sweep."""
     from soda_tpu.frontend.parser import parse
 
     src = ("kernel: m64\niterate: 4\ninput int64: a(128, *)\n"
@@ -266,8 +261,8 @@ def test_mesh_wide_i64_bit_exact():
     r = p.valid_rim()
     assert got.dtype == np.int64
     assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
-    got_p = run_sharded(p, {"a": x}, axis_sizes=[8], local_backend="pallas",
-                        interpret=True)["out"]
+    got_p = run_sharded(p, {"a": x}, axis_sizes=[8],
+                        sweeps_per_exchange=1)["out"]
     assert got_p.dtype == np.int64
     assert np.array_equal(gold[r:-r, r:-r], got_p[r:-r, r:-r])
 
@@ -311,23 +306,22 @@ def test_overlap_multihop_falls_back():
 
 
 def test_sharded_aux_input_unaligned_grid():
-    """Review r2: aux-input iterate + aligned-core rim on the pallas local
-    backend (the _eval_group_slab multi-sweep path must carry aux)."""
+    """Aux-input iterate on an unaligned grid sharded along x (the aux
+    input must carry over every sweep)."""
     p = parse_file(SODA / "denoise2p.soda")
     u = rng.standard_normal((100, 128)).astype(np.float32)
     f = rng.standard_normal((100, 128)).astype(np.float32)
     gold = numpy_interp.run(p, {"u": u, "f": f})
-    got = run_sharded(p, {"u": u, "f": f}, axis_sizes=[2], dims=[1],
-                      local_backend="pallas", interpret=True)
+    got = run_sharded(p, {"u": u, "f": f}, axis_sizes=[2], dims=[1])
     check(p, got, gold)
 
 
-# ---- multi-slice (DCN) meshes: per-axis exchange cadence ----------------
+# ---- slow-link (dcn) meshes: per-axis exchange cadence -------------------
 
 
 def test_nested_cadence_explicit():
-    """Round 2 (TODO 'multi-slice DCN'): a 2x4 mesh with per-axis exchange
-    cadences (dcn every 4 sweeps, ici every 2) matches the oracle; the
+    """A 2x4 mesh with per-axis exchange cadences (dcn every 4 sweeps,
+    x every 2) matches the oracle; the
     nested schedule exchanges the slow axis's deeper halo less often."""
     p = parse_file(SODA / "jacobi2d.soda")
     x = rng.standard_normal((64, 96)).astype(np.float32)
@@ -338,15 +332,14 @@ def test_nested_cadence_explicit():
     check(p, got, gold)
 
 
-def test_nested_cadence_pallas_local():
-    """Nested cadence with the Pallas local backend (interpret mode)."""
+def test_nested_cadence_deep_slow_axis():
+    """Nested cadence with the slow axis exchanging once in 8 sweeps."""
     p = parse_file(SODA / "jacobi2d.soda")
     x = rng.standard_normal((64, 96)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
     mesh = make_mesh([2, 4], ["dcn", "x"])
     got = run_sharded(p, {"t0": x}, mesh=mesh,
-                      sweeps_per_exchange={"dcn": 8, "x": 2},
-                      local_backend="pallas", interpret=True)
+                      sweeps_per_exchange={"dcn": 8, "x": 2})
     check(p, got, gold)
 
 
@@ -363,24 +356,35 @@ def test_nested_cadence_aux_input():
 
 
 def test_auto_cadence_from_link_classes():
-    """link_classes auto-picks per-axis cadences from the modeled link
-    costs (DCN deeper than ICI on 3-D production shapes) and the sharded
-    run matches the oracle."""
-    from soda_tpu.parallel.mesh import choose_exchange_cadence
+    """link_classes auto-picks per-axis cadences from the link costs (a
+    calibrated slow dcn deeper than nvlink on 3-D production shapes) and
+    the sharded run matches the oracle; a dcn axis without a calibrated
+    cost is refused."""
+    from soda_tpu.parallel.mesh import (LINK_MODEL, choose_exchange_cadence,
+                                        set_link_model)
 
     p = parse_file(SODA / "heat3d.soda")
     mesh = make_mesh([2, 4], ["dcn", "x"])
-    cad = choose_exchange_cadence(
-        p, (512, 512, 512), mesh, (0, 1), 16,
-        {"dcn": "dcn", "x": "ici"})
-    assert cad["dcn"] > cad["x"], cad
-    assert cad["dcn"] % cad["x"] == 0  # divisor chain
+    links = {"dcn": "dcn", "x": "nvlink"}
+    saved = dict(LINK_MODEL)
+    try:
+        LINK_MODEL.clear()
+        with pytest.raises(ValueError, match="link-model"):
+            choose_exchange_cadence(p, (512, 512, 512), mesh, (0, 1), 16,
+                                    links)
+        set_link_model("dcn=0.5:1e-4")
+        cad = choose_exchange_cadence(
+            p, (512, 512, 512), mesh, (0, 1), 16, links)
+        assert cad["dcn"] > cad["x"], cad
+        assert cad["dcn"] % cad["x"] == 0  # divisor chain
 
-    x = rng.standard_normal((32, 32, 64)).astype(np.float32)
-    gold = numpy_interp.run(p, {"heat_in": x})
-    got = run_sharded(p, {"heat_in": x}, mesh=mesh,
-                      link_classes={"dcn": "dcn", "x": "ici"})
-    check(p, got, gold)
+        x = rng.standard_normal((32, 32, 64)).astype(np.float32)
+        gold = numpy_interp.run(p, {"heat_in": x})
+        got = run_sharded(p, {"heat_in": x}, mesh=mesh, link_classes=links)
+        check(p, got, gold)
+    finally:
+        LINK_MODEL.clear()
+        LINK_MODEL.update(saved)
 
 
 def test_cadence_divisor_chain_rejected():
@@ -430,8 +434,7 @@ def test_mesh_wide_overlap_equals_synchronous():
 
 def test_mesh_half_program():
     """half programs shard with f32 local compute and f16 outputs (the
-    2 B/cell bit-pattern streaming is a Pallas-path detail; the mesh's
-    xla local path value-casts) — f16-scale agreement with the oracle."""
+    local path value-casts) — f16-scale agreement with the oracle."""
     p = parse_file(SODA / "smooth_half.soda")
     x = rng.standard_normal((64, 96)).astype(np.float16)
     gold = numpy_interp.run(p, {"h_in": x})["h_out"]
@@ -493,17 +496,16 @@ def test_uneven_wide_i64_bit_exact():
     assert np.array_equal(got[k], gold[k])
 
 
-def test_uneven_overlap_and_pallas_local():
-    """The comms/compute-overlap path and the Pallas local backend both
-    honor pad-to-shard masking."""
+def test_uneven_overlap_and_synchronous():
+    """The comms/compute-overlap path and the synchronous path both honor
+    pad-to-shard masking."""
     p = parse_file(SODA / "jacobi2d.soda")
     x = rng.standard_normal((100, 251)).astype(np.float32)
     gold = numpy_interp.run(p, {"t0": x})
     got_o = run_sharded(p, {"t0": x}, axis_sizes=[8], sweeps_per_exchange=1,
                         overlap=True)
     assert np.array_equal(got_o["t1"], gold["t1"])
-    got_p = run_sharded(p, {"t0": x}, axis_sizes=[8], sweeps_per_exchange=1,
-                        local_backend="pallas", interpret=True)
+    got_p = run_sharded(p, {"t0": x}, axis_sizes=[8], sweeps_per_exchange=1)
     assert np.array_equal(got_p["t1"], gold["t1"])
 
 
@@ -527,18 +529,19 @@ def test_link_model_calibration_hook():
 
     p = parse_file(SODA / "jacobi2d.soda")  # iterate 8
     mesh = make_mesh([2, 4], ["dcn", "x"])
-    links = {"dcn": "dcn", "x": "ici"}
+    links = {"dcn": "dcn", "x": "nvlink"}
     saved = dict(LINK_MODEL)
     try:
         set_link_model("dcn=6.25:1e-4")
         cad_fast = choose_exchange_cadence(
             p, (256, 2048), mesh, [0, 1], 8, links)
-        set_link_model("dcn=0.01:0.5")  # pathologically slow cross-slice
+        set_link_model("dcn=0.01:0.5")  # pathologically slow link
         cad_slow = choose_exchange_cadence(
             p, (256, 2048), mesh, [0, 1], 8, links)
         assert cad_slow["dcn"] >= cad_fast["dcn"]
         assert cad_slow["dcn"] == 8  # exchange once: latency dominates
     finally:
+        LINK_MODEL.clear()
         LINK_MODEL.update(saved)
     import pytest as _pytest
     with _pytest.raises(ValueError, match="link-model"):

@@ -82,14 +82,14 @@ def test_hoisted_stage_type_is_wide():
     assert q.tensors[h].type.width == 32  # partial sums don't mask at uint16
 
 
-def test_pallas_runs_tcse_program():
-    from soda_tpu.backend import pallas as pb
+def test_xla_runs_tcse_program():
+    from soda_tpu.parallel.host_tile import run_host_tiled
 
     p = parse(BOX9)
     q = tcse.apply(p)
     x = rng.integers(0, 65535, (48, 128)).astype(np.uint16)
     gold = numpy_interp.run(p, {"img": x})["out"]
-    got = pb.run(q, {"img": x}, interpret=True)["out"]
+    got = run_host_tiled(q, {"img": x}, tiles=(16, 64))["out"]
     rim = q.valid_rim()
     sl = (slice(rim, -rim), slice(rim, -rim))
     assert np.array_equal(got[sl], gold[sl])
@@ -227,7 +227,7 @@ def test_hoisted_width_from_value_bound():
     """Review r2: hoisted partial sums feeding value-dependent ops must not
     mask — the store width comes from a static value bound.  int32 taps
     near 2^31 widen the hoist to int64 (exact division); uint16 chains
-    (provably < 2^31) keep int32 so the TPU Pallas path still runs them."""
+    (provably < 2^31) keep int32 so the 32-bit path still runs them."""
     src = (
         "kernel: g\n"
         "input int32: a(64, *)\n"
@@ -244,7 +244,7 @@ def test_hoisted_width_from_value_bound():
     r = max(p.valid_rim(), q.valid_rim())
     assert np.array_equal(a[:, r:-r], b[:, r:-r])
     # the declared-uint32 gx stage is BOUNDED by its expression, so
-    # gaussian2d's hoists stay int32 (TPU-runnable)
+    # gaussian2d's hoists stay int32 (no x64 mode needed)
     q2 = tcse.apply(parse_file(SODA / "gaussian2d.soda"))
     assert all(q2.tensors[n].type.width == 32
                for n in q2.tensors if "__cse" in n)
@@ -327,12 +327,14 @@ def test_mixed_fractional_weight_untouched_group():
     assert np.allclose(a[sl], b2[sl], rtol=1e-6, atol=1e-6)
 
 
-def test_wide_hoists_stay_tpu_runnable():
+def test_wide_hoists_stay_runnable():
     """Heavy-fuzz finding: int32-parent weighted hoists are typed int64
-    for ORACLE exactness, but must not reduce TPU availability — the
-    Pallas/mesh paths compute __cse stages at int32, exactly the
-    (documented) behavior of the unrewritten program."""
-    from soda_tpu.backend import pallas as pb
+    for ORACLE exactness; they are synthetic, so the mesh keeps its
+    32-bit path (no pair carriers) and the XLA path runs them in x64 —
+    both exact vs the unrewritten program."""
+    from soda_tpu.backend import xla as xb
+    from soda_tpu.interp.wide64 import program_is_wide
+    from soda_tpu.parallel.mesh import run_sharded
 
     src = (
         "kernel: w\n"
@@ -345,12 +347,13 @@ def test_wide_hoists_stay_tpu_runnable():
     q = tcse.apply(p)
     assert any(q.tensors[n].type.width == 64
                for n in q.tensors if "__cse" in n)
-    pb.check_tpu_supported(q)  # must NOT raise (internal stages exempt)
+    assert not program_is_wide(q)  # internal stages exempt
     x = rng.integers(0, 500, (40, 56)).astype(np.int32)
     a = numpy_interp.run(p, {"a": x})["out"]
-    b = pb.run(q, {"a": x}, interpret=True)["out"]
     r = max(p.valid_rim(), q.valid_rim())
-    assert np.array_equal(a[r:-r, r:-r], b[r:-r, r:-r])
+    for b in (xb.run(q, {"a": x})["out"],
+              run_sharded(q, {"a": x}, axis_sizes=[2], dims=[0])["out"]):
+        assert np.array_equal(a[r:-r, r:-r], b[r:-r, r:-r])
 
 
 def test_cubic_factor_global_selection():

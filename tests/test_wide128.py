@@ -1,8 +1,8 @@
 """65..128-bit integers (interp/wide128): quad-limb carriers on the
 NumPy-oracle and XLA paths, __int128 in the C++ golden runner — each
 verified BIT-EXACT against Python-int (arbitrary-precision) ground truth.
-The Pallas kernel and mesh paths reject >64 loudly (typed errors naming
-`--backend xla`)."""
+Host tiles run them on the same carriers; the mesh rejects >64 loudly (a
+typed error naming `--backend xla`)."""
 
 import numpy as np
 import pytest
@@ -147,14 +147,17 @@ def test_xla_and_cpp_match_oracle():
         assert (got_c == gold).all(), "C++ __int128"
 
 
-def test_pallas_and_mesh_reject_128_loudly():
-    from soda_tpu.backend import pallas as pb
+def test_host_tile_runs_128_mesh_rejects_loudly():
+    """Host tiles run >64-bit programs on quad-limb carriers, exactly;
+    the mesh (64-bit plane pairs at most) rejects them by name."""
+    from soda_tpu.parallel.host_tile import run_host_tiled
+    from soda_tpu.parallel.mesh import run_sharded
 
     p = parse(SRC_U)
     x = rand128(16 * 24, False).reshape(16, 24)
-    with pytest.raises(NotImplementedError, match="backend xla"):
-        pb.run(p, {"a": x}, interpret=True)
-    from soda_tpu.parallel.mesh import run_sharded
+    gold = numpy_interp.run(p, {"a": x})[p.output_names[0]]
+    got = run_host_tiled(p, {"a": x}, tiles=(8, 12))[p.output_names[0]]
+    assert (got == gold).all()
 
     with pytest.raises(NotImplementedError, match="backend xla"):
         run_sharded(p, {"a": x}, axis_sizes=[8])

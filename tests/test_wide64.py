@@ -1,19 +1,20 @@
-"""In-kernel 64-bit wide mode (interp/wide64): paired-32-bit limb
+"""Pair-carrier 64-bit mode (interp/wide64): paired-32-bit limb
 arithmetic and double-single f64, unit-tested against numpy int64/float64
-ground truth and integration-tested through the Pallas path (interpret
-mode; the same kernels compile and verify on TPU hardware — see git log /
-scripts/tpu_check.py corpus additions)."""
+ground truth and integration-tested through the mesh, whose 64-bit path
+shards plane pairs and evaluates with these carriers (parallel/mesh.py);
+the XLA path's native x64 is checked beside it."""
 
 import random
 
 import numpy as np
 import pytest
 
-from soda_tpu.backend import pallas as pb
+from soda_tpu.backend import xla as xb
 from soda_tpu.frontend.parser import parse
 from soda_tpu.interp import numpy_interp
 from soda_tpu.interp.wide64 import (
     W, WideXP, merge_planes, program_is_wide, split_planes)
+from soda_tpu.parallel.mesh import run_sharded
 
 rng = np.random.default_rng(7)
 
@@ -111,21 +112,26 @@ def test_pair_float_conversions():
     assert np.array_equal(merge_planes(back.a, back.b, np.int64), i)
 
 
-# ---- integration: Pallas path (interpret mode) vs the int64 oracle --------
+# ---- integration: mesh pair-carrier path vs the int64 oracle -------------
+
+
+def pair_run(p, ins, params=None, **kw):
+    """Run `p` through the mesh's pair-carrier path on 2 devices."""
+    return run_sharded(p, ins, params, axis_sizes=[2], dims=[0], **kw)
 
 
 def run_both(src, ins, it=None):
     p = parse(src)
     assert program_is_wide(p)
     gold = numpy_interp.run(p, ins, iterate=it)[p.output_names[0]]
-    got = pb.run(p, ins, interpret=True, iterate=it)[p.output_names[0]]
+    got = pair_run(p, ins, iterate=it)[p.output_names[0]]
     r = p.valid_rim(iterate=it) if it else p.valid_rim()
     sl = tuple(slice(r, -r) if r else slice(None)
                for _ in range(gold.ndim))
     return gold[sl], got[sl]
 
 
-def test_pallas_i64_bit_exact():
+def test_pair_i64_bit_exact():
     x = rng.integers(-2**50, 2**50, (32, 128), dtype=np.int64)
     g, o = run_both(
         "kernel: s\ninput int64: a(128, *)\n"
@@ -134,7 +140,7 @@ def test_pallas_i64_bit_exact():
     assert o.dtype == np.int64 and np.array_equal(g, o)
 
 
-def test_pallas_u64_division_bit_exact():
+def test_pair_u64_division_bit_exact():
     u = rng.integers(1, 2**63, (32, 128), dtype=np.uint64)
     g, o = run_both(
         "kernel: u\ninput uint64: a(128, *)\n"
@@ -143,7 +149,7 @@ def test_pallas_u64_division_bit_exact():
     assert o.dtype == np.uint64 and np.array_equal(g, o)
 
 
-def test_pallas_i64_c_division_negative():
+def test_pair_i64_c_division_negative():
     x = rng.integers(-2**50, 2**50, (32, 128), dtype=np.int64)
     g, o = run_both(
         "kernel: s\ninput int64: a(128, *)\n"
@@ -152,7 +158,7 @@ def test_pallas_i64_c_division_negative():
     assert np.array_equal(g, o)
 
 
-def test_pallas_f64_double_single():
+def test_pair_f64_double_single():
     f = rng.standard_normal((32, 128))
     g, o = run_both(
         "kernel: d\ninput double: a(128, *)\n"
@@ -163,45 +169,32 @@ def test_pallas_f64_double_single():
     assert np.abs(g - o).max() / np.abs(g).max() < 1e-12
 
 
-def test_pallas_wide_trapezoid_fused_sweeps():
-    """Wide iterate programs fuse sweeps on the trapezoid schedule
-    (pair-carrier shrinking extents) — cutting traffic nf-fold vs the
-    old one-sweep-per-call chunking — and stay bit-exact; f64 stays at
-    double-single accuracy.  Hardware-verified this round (29 s compile,
-    v5e)."""
-    from soda_tpu.plan.planner import plan
-
+def test_pair_wide_fused_sweeps():
+    """Wide iterate programs fuse 8 sweeps per halo exchange on the pair
+    path (pair-carrier shrinking extents) and stay bit-exact; f64 stays
+    at double-single accuracy."""
     src = ("kernel: it64\niterate: 8\ninput int64: a(128, *)\n"
            "output int64: out(0,0) = (a(-1,0) + a(1,0) + a(0,-1)"
            " + a(0,1)) / int64(4)\n")
     p = parse(src)
-    pl = plan(p, (256, 256))
-    g = pl.groups[0]
-    assert g.trapezoid and g.sweeps > 1
     x = rng.integers(-2**45, 2**45, (256, 256), dtype=np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True, the_plan=pl)["out"]
+    got = pair_run(p, {"a": x}, sweeps_per_exchange=8)["out"]
     r = p.valid_rim()
     assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
 
-    # double-single programs fuse through the FORI schedule instead (the
-    # flat trapezoid corrupts DS EFTs under XLA backend optimization —
-    # fuzz seed 77, see test_ds_iterate_avoids_trapezoid) and stay at DS
-    # accuracy when fusion is explicitly requested
     src2 = ("kernel: itd\niterate: 8\ninput double: a(128, *)\n"
             "output double: out(0,0) = (a(-1,0) + a(1,0) + a(0,-1)"
             " + a(0,1) + a(0,0)) * 0.2\n")
     p2 = parse(src2)
-    pl2 = plan(p2, (256, 256), sweeps=8)
-    assert not pl2.groups[0].trapezoid and pl2.groups[0].sweeps == 8
     f = rng.standard_normal((256, 256))
     gold2 = numpy_interp.run(p2, {"a": f})["out"]
-    got2 = pb.run(p2, {"a": f}, interpret=True, the_plan=pl2)["out"]
+    got2 = pair_run(p2, {"a": f}, sweeps_per_exchange=8)["out"]
     r2 = p2.valid_rim()
     assert np.abs(gold2[r2:-r2, r2:-r2] - got2[r2:-r2, r2:-r2]).max() < 1e-11
 
 
-def test_pallas_wide_iterate_and_rank3():
+def test_pair_wide_iterate_and_rank3():
     x = rng.integers(-2**45, 2**45, (32, 128), dtype=np.int64)
     g, o = run_both(
         "kernel: it\niterate: 4\ninput int64: a(128, *)\n"
@@ -216,7 +209,7 @@ def test_pallas_wide_iterate_and_rank3():
     assert np.array_equal(g3, o3)
 
 
-def test_pallas_wide_rank1():
+def test_pair_wide_rank1():
     x = rng.integers(-2**50, 2**50, 256, dtype=np.int64)
     g, o = run_both(
         "kernel: r1\ninput int64: a(*)\n"
@@ -225,7 +218,7 @@ def test_pallas_wide_rank1():
     assert np.array_equal(g, o)
 
 
-def test_pallas_mixed_narrow_wide():
+def test_pair_mixed_narrow_wide():
     m = rng.integers(0, 60000, (32, 128)).astype(np.uint16)
     g, o = run_both(
         "kernel: m\ninput uint16: a(128, *)\n"
@@ -234,51 +227,34 @@ def test_pallas_mixed_narrow_wide():
     assert np.array_equal(g, o)
 
 
-def test_plan_constrains_wide_strategies():
-    """Wide ITERATE programs: windows or strips (the rank-2 linebuffer is
-    single-sweep-only); fused sweeps run the trapezoid schedule up to the
-    cap, then the pair-carrying fori; non-pow2 wide integer division
-    disables fusion (compile-cost guard)."""
-    from soda_tpu.plan.planner import plan
-
-    p = parse("kernel: w\niterate: 4\ninput int64: a(128, *)\n"
-              "output int64: out(0,0) = a(0,-1) + a(0,1)\n")
-    pl = plan(p, (512, 512))
-    assert all(gp.strategy in ("windows", "strips") for gp in pl.groups)
-    assert all(gp.trapezoid or gp.sweeps == 1 for gp in pl.groups)
-    pl2 = plan(p, (500, 512))  # unaligned leading dim -> no strips
-    assert all(gp.strategy == "windows" for gp in pl2.groups)
-    # non-pow2 wide integer division: fused sweeps disabled (the 64-step
-    # pair long division per unrolled sweep explodes compile time)
+def test_wide_iterate_xla_native():
+    """Wide ITERATE programs run native int64 in one scan on the XLA
+    path, including non-pow2 wide division, bit-exactly."""
     p3 = parse("kernel: w3\niterate: 4\ninput int64: a(128, *)\n"
                "output int64: out(0,0) = (a(0,-1) + a(0,1)) / int64(5)\n")
-    pl3 = plan(p3, (512, 512))
-    assert all(gp.sweeps == 1 for gp in pl3.groups)
-    assert any("compile-cost guard" in n for n in pl3.notes)
+    x = rng.integers(-2**50, 2**50, (32, 128), dtype=np.int64)
+    gold = numpy_interp.run(p3, {"a": x})["out"]
+    got = xb.run(p3, {"a": x})["out"]
+    r = p3.valid_rim()
+    assert np.array_equal(gold[:, r:-r], got[:, r:-r])
 
 
-def test_pallas_wide_strips_strategy():
-    """Pair-carrier strips kernel (pad-free, per-plane piece assembly)
-    matches the oracle bit-exactly."""
-    from soda_tpu.plan.planner import plan
-
+def test_pair_wide_shifts_both_dims():
+    """Pair-carrier shifts along both dims match the oracle bit-exactly."""
     p = parse("kernel: ws\ninput int64: a(128, *)\n"
               "output int64: out(0,0) = a(-1,0) * int64(3) + a(1,0)"
               " - (a(0,-1) >> 2) + a(0,1)\n")
-    pl = plan(p, (64, 128), vmem_budget=2 * 2**20)
-    if not any(gp.strategy == "strips" for gp in pl.groups):
-        pl = None  # fall back: force via block_override-free small budget
     x = rng.integers(-2**50, 2**50, (64, 128), dtype=np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True, the_plan=pl)["out"]
+    got = pair_run(p, {"a": x})["out"]
     r = p.valid_rim()
     assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_fuzz_wide_pallas_bit_exact(seed):
-    """Random int64 expression trees: Pallas pair carriers == int64
-    oracle, bit-exact."""
+def test_fuzz_wide_pair_bit_exact(seed):
+    """Random int64 expression trees: pair carriers == int64 oracle,
+    bit-exact."""
     r = random.Random(7000 + seed)
     terms = []
     used_div = False
@@ -294,9 +270,8 @@ def test_fuzz_wide_pallas_bit_exact(seed):
         elif k < 0.6 and not used_div:
             # at most ONE general wide division per program: each one
             # unrolls a 64-step pair long division, and XLA:CPU compile
-            # time explodes superlinearly in their count (TODO.md; ~90 s
-            # at 4 divisions on a multicore box, ~an hour for seed 4's
-            # three divisions on the 1-CPU round-5 host).  One per
+            # time explodes superlinearly in their count (~90 s at 4
+            # divisions on a multicore box).  One per
             # program keeps the division path covered across seeds.
             used_div = True
             terms.append(f"{o} / (a(0, {r.randint(-2, 2)})"
@@ -314,24 +289,17 @@ def test_fuzz_wide_pallas_bit_exact(seed):
     assert np.array_equal(g, o), src
 
 
-def test_pallas_wide_unaligned_grids_use_strips():
-    """Unaligned wide grids keep a pad-free strategy (r3: the pair-aware
-    2-D line buffer now beats strips on traffic): the hybrid rim path
-    evaluates pair carriers and stitches plane rims traced — bit-exact,
-    incl. iterate trapezoid."""
-    from soda_tpu.plan.planner import plan
-
+def test_pair_wide_unaligned_grids():
+    """Unaligned wide grids pad-to-shard on the pair path: bit-exact,
+    incl. iterate."""
     src = ("kernel: wu\ninput int64: a(128, *)\n"
            "output int64: out(0,0) = a(-1,0) * int64(3) + a(1,0)"
            " - (a(0,-1) >> 2) + a(0,1)\n")
     p = parse(src)
-    for gs in ((500, 512), (61, 130)):
-        pl = plan(p, gs, vmem_budget=8 * 2**20)
-        assert pl.groups[0].strategy in ("strips", "linebuffer")
-        assert pl.groups[0].core is not None
+    for gs in ((61, 130), (33, 70)):
         x = rng.integers(-2**50, 2**50, gs, dtype=np.int64)
         gold = numpy_interp.run(p, {"a": x})["out"]
-        got = pb.run(p, {"a": x}, interpret=True, the_plan=pl)["out"]
+        got = pair_run(p, {"a": x})["out"]
         r = p.valid_rim()
         assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r]), gs
 
@@ -339,11 +307,9 @@ def test_pallas_wide_unaligned_grids_use_strips():
             "output int64: out(0,0) = a(-1,0) + a(1,0) + a(0,-1)"
             " + a(0,1)\n")
     p2 = parse(src2)
-    pl2 = plan(p2, (100, 128))
-    assert pl2.groups[0].core is not None and pl2.groups[0].sweeps > 1
     x2 = rng.integers(-2**45, 2**45, (100, 128), dtype=np.int64)
     gold2 = numpy_interp.run(p2, {"a": x2})["out"]
-    got2 = pb.run(p2, {"a": x2}, interpret=True, the_plan=pl2)["out"]
+    got2 = pair_run(p2, {"a": x2})["out"]
     r2 = p2.valid_rim()
     assert np.array_equal(gold2[r2:-r2, r2:-r2], got2[r2:-r2, r2:-r2])
 
@@ -364,7 +330,7 @@ def test_tcse_composes_with_wide():
     assert tcse.count_ops(q) < tcse.count_ops(p)
     x = rng.integers(-2**40, 2**40, (48, 128), dtype=np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(q, {"a": x}, interpret=True)["out"]
+    got = pair_run(q, {"a": x})["out"]
     r = max(p.valid_rim(), q.valid_rim())
     assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
 
@@ -381,91 +347,68 @@ def test_unroll_iterate_composes_with_wide():
     pu = unroll.unroll_iterate(p, 4)
     x = rng.integers(-2**45, 2**45, (64, 128), dtype=np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(pu, {"a": x}, interpret=True)[pu.output_names[0]]
+    got = pair_run(pu, {"a": x})[pu.output_names[0]]
     r = p.valid_rim()
     assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
 
 
-# ---- round 3: traced wide path (W is a pytree) --------------------------
+# ---- traced wide path (W is a pytree) ----------------------------------
 
 
-def test_wide_linebuffer_2d_bit_exact():
-    """The 2-D line buffer is pair-aware: 64-bit tensors stream as two
-    plane operands with plane carries — one HBM read per cell (16.03 vs
-    strips' 16.25 B/cell at 2048²) and bit-exact vs the int64 oracle."""
-    from soda_tpu.plan.planner import plan
-
+def test_wide_2d_full_grid_bit_exact():
+    """Zero-preserving int64 stencils are exact on the FULL grid through
+    the pair path; double rides the same carriers at double-single
+    accuracy."""
     src = ("kernel: wlb\ninput int64: a(256, *)\n"
            "output int64: out(0,0) = a(-1,0) + a(1,0) * int64(7)"
            " + (a(0,-1) >> 1) + a(0,1)\n")
     p = parse(src)
-    pl = plan(p, (64, 128))
-    assert pl.groups[0].strategy == "linebuffer"
     x = rng.integers(-2**50, 2**50, (64, 128), dtype=np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True, the_plan=pl)["out"]
+    got = pair_run(p, {"a": x})["out"]
     assert np.array_equal(gold, got)  # zero-preserving: full-grid exact
 
-    # double rides the same kernel at double-single accuracy
     src_d = ("kernel: wlbd\ninput double: a(256, *)\n"
              "output double: out(0,0) = (a(-1,0) + a(1,0) + a(0,-1)"
              " + a(0,1)) * 0.25\n")
     pd = parse(src_d)
-    pld = plan(pd, (64, 128))
-    assert pld.groups[0].strategy == "linebuffer"
     y = rng.standard_normal((64, 128))
     gd = numpy_interp.run(pd, {"a": y})["out"]
-    od = pb.run(pd, {"a": y}, interpret=True, the_plan=pld)["out"]
+    od = pair_run(pd, {"a": y})["out"]
     assert np.abs(gd - od).max() < 1e-12
 
 
-def test_wide_fori_deep_iterate_bit_exact():
-    """Fused sweeps beyond the trapezoid cap carry W pairs through the
-    constant-extent fori_loop — deep-iterate int64 stays bit-exact and
-    the plan reports traffic ÷ nf (VERDICT r2 #2)."""
-    from soda_tpu.plan.planner import TRAPEZOID_MAX_SWEEPS, plan
-
+def test_wide_deep_iterate_bit_exact():
+    """24 fused sweeps per exchange carry W pairs through the constant-
+    extent sweeps — deep-iterate int64 stays bit-exact."""
     src = ("kernel: wdeep\niterate: 24\ninput int64: a(96, *)\n"
            "output int64: out(0,0) = a(-1,0) + a(1,0) * int64(3)"
            " + (a(0,-1) >> 2) + a(0,1)\n")
     p = parse(src)
-    pl = plan(p, (96, 128), sweeps=24)
-    g = pl.groups[0]
-    assert g.sweeps == 24 > TRAPEZOID_MAX_SWEEPS and not g.trapezoid
-    # fused traffic ÷ nf: per-update bytes well below one sweep's 16
-    assert g.hbm_bytes_per_call / g.useful_cells_per_call < 16 / 8
     x = rng.integers(-2**40, 2**40, (96, 128), dtype=np.int64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True, the_plan=pl)["out"]
+    got = pair_run(p, {"a": x}, sweeps_per_exchange=24)["out"]
     r = p.valid_rim()
     assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
 
 
 def test_wide_jit_end_to_end():
-    """Wide programs jit end-to-end: inputs/params split once into W pair
-    carriers (a pytree) at the boundary, the whole chunk chain traces,
-    and results match the un-jitted run bit-for-bit."""
-    import jax
-
-    from soda_tpu.backend.pallas import (build_fn, finalize_outputs,
-                                         to_wide_params, to_wide_values)
-    from soda_tpu.plan.planner import plan
-
+    """Wide programs with a 64-bit param above 2^32 jit end-to-end: the
+    XLA path natively under x64, the mesh over plane pairs; both match
+    the oracle bit-for-bit."""
     src = ("kernel: wjit\niterate: 4\ninput int64: a(128, *)\n"
            "param int64: k\n"
            "output int64: out(0,0) = (a(-1,0) + a(1,0) + a(0,-1)"
            " + a(0,1)) * k\n")
     p = parse(src)
-    pl = plan(p, (64, 128), sweeps=2)  # 2 chunked calls trace in one jit
     x = rng.integers(-2**40, 2**40, (64, 128), dtype=np.int64)
     ps = {"k": np.int64(3_000_000_019)}
-    fn = jax.jit(build_fn(p, the_plan=pl, interpret=True))
-    outs = fn(to_wide_values(p, {"a": x}), to_wide_params(p, ps))
-    got = finalize_outputs(p, outs)["out"]
     gold = numpy_interp.run(p, {"a": x}, ps)["out"]
     r = p.valid_rim()
-    assert got.dtype == np.int64
-    assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
+    for got in (xb.run(p, {"a": x}, ps)["out"],
+                pair_run(p, {"a": x}, ps, sweeps_per_exchange=2)["out"]):
+        assert got.dtype == np.int64
+        assert np.array_equal(gold[r:-r, r:-r], got[r:-r, r:-r])
 
 
 def test_ds_exp_log_accuracy():
@@ -500,16 +443,16 @@ def test_ds_exp_log_accuracy():
     assert lg[0] == -np.inf and np.isnan(lg[1])
 
 
-def test_ds_exp_through_pallas_matches_f64_oracle():
+def test_ds_exp_through_pair_path_matches_f64_oracle():
     """A poisson-style double program with exp matches the f64 oracle to
-    1e-10 through the Pallas path (VERDICT r2 #8 done-criterion)."""
+    1e-10 through the pair path."""
     src = ("kernel: pexp\ninput double: a(128, *)\n"
            "output double: out(0,0) = exp((a(-1,0) + a(1,0) + a(0,-1)"
            " + a(0,1)) * 0.1) + log(abs(a(0,0)) + 1.0)\n")
     p = parse(src)
     x = rng.standard_normal((48, 128))
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True)["out"]
+    got = pair_run(p, {"a": x})["out"]
     assert np.abs(gold - got).max() / np.abs(gold).max() < 1e-10
 
 
@@ -663,12 +606,12 @@ def test_ds_trig_full_range_payne_hanek():
     assert np.abs(ch_ + cl - (cv.a.astype(np.float64) + cv.b)).max() < 1e-14
 
 
-def test_ds_trig_big_args_through_pallas():
-    """The Payne–Hanek path lowers through the Pallas kernel machinery
-    (vector bitcasts, u32 word selects, dynamic shifts): a double stencil
+def test_ds_trig_big_args_through_pair_path():
+    """The Payne–Hanek path (vector bitcasts, u32 word selects, dynamic
+    shifts) runs traced on the pair path: a double stencil
     with sin/cos on arguments up to ~1e18 matches the f64 oracle.  The
     inputs are constructed as EXACT f32-pair sums (lo within [2^-29,
-    2^-25] of hi) so the f64 oracle argument equals the in-kernel DS pair
+    2^-25] of hi) so the f64 oracle argument equals the DS pair
     bit-for-bit — at these magnitudes an input off by even one f64 ulp
     shifts the reduced argument by ~100 radians."""
     src = ("kernel: ptrigbig\ninput double: a(128, *)\n"
@@ -679,33 +622,33 @@ def test_ds_trig_big_args_through_pallas():
                            (48, 128))).astype(np.float32)
     x = hi.astype(np.float64) + lo.astype(np.float64)
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True)["out"]
+    got = pair_run(p, {"a": x})["out"]
     assert np.abs(gold - got).max() < 1e-9
 
 
-def test_ds_trig_through_pallas():
+def test_ds_trig_through_pair_path():
     """A double stencil with sin/cos matches the f64 oracle to 1e-9
-    through the Pallas path."""
+    through the pair path."""
     src = ("kernel: ptrig\ninput double: a(128, *)\n"
            "output double: out(0,0) = sin(a(0,0)) * cos(a(0,1))"
            " + tanh(a(-1,0) + a(1,0))\n")
     p = parse(src)
     x = rng.standard_normal((48, 128)) * 3.0
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = pb.run(p, {"a": x}, interpret=True)["out"]
+    got = pair_run(p, {"a": x})["out"]
     assert np.abs(gold - got).max() < 1e-9
 
 
 def test_rank1_wide_mixed_inputs_jit():
-    """Review r3 #2: a rank-1 wide program with a NON-wide input must
-    trace under the end-to-end wide jit (the (1, X) lift used
-    np.asarray on what is now a traced value)."""
+    """A rank-1 wide program with a NON-wide input traces on the pair
+    path (wide and narrow tensors cross the shard boundary side by
+    side)."""
     p = parse("kernel: r1w\ninput int64: a(2048)\ninput float: w(2048)\n"
               "output int64: out(0) = a(-1) + a(1) + int64(w(0) * 100.0)\n")
     x = rng.integers(-2**40, 2**40, 2048).astype(np.int64)
     f = rng.standard_normal(2048).astype(np.float32)
     gold = numpy_interp.run(p, {"a": x, "w": f})["out"]
-    got = pb.run(p, {"a": x, "w": f}, interpret=True)["out"]
+    got = pair_run(p, {"a": x, "w": f})["out"]
     assert np.array_equal(gold[1:-1], got[1:-1])
 
 
@@ -724,53 +667,38 @@ def test_ds_pow_exponent_zero_is_one():
     assert (got == 1.0).all()
 
 
-def test_wide_linebuffer_3d_bit_exact():
-    """Round 3: the 3-D z-march line buffer is pair-aware — wide tensors
-    ride two plane operands with plane carries.  int64 bit-exact and
-    double at DS accuracy, incl. the y-tiled variant."""
-    from soda_tpu.plan.planner import plan
-
+def test_wide_3d_bit_exact():
+    """3-D 64-bit stencils on the pair path: int64 bit-exact on the full
+    grid, sharded along z and along y; double at DS accuracy (the 'd'
+    rep swaps plane order (hi, lo) vs ints (lo, hi) — the output
+    plane-split path must honor it)."""
     src = ("kernel: lb3w\ninput int64: u(256, 256, *)\n"
            "output int64: r(0,0,0) = (u(-1,0,0) + u(1,0,0) + u(0,-1,0)"
            " + u(0,1,0) + u(0,0,-1) + u(0,0,1)) / 8 + u(0,0,0) * int64(3)\n")
     p = parse(src)
-    pl = plan(p, (64, 64, 128))
-    assert pl.groups[0].strategy == "linebuffer"
-    x = rng.integers(-2**40, 2**40, (64, 64, 128)).astype(np.int64)
+    x = rng.integers(-2**40, 2**40, (16, 32, 64)).astype(np.int64)
     gold = numpy_interp.run(p, {"u": x})["r"]
-    got = pb.run(p, {"u": x}, the_plan=pl, interpret=True)["r"]
-    assert np.array_equal(gold, got)
-    # y-tiled (hy > 0) under a tight budget
-    pl2 = plan(p, (64, 256, 256), vmem_budget=24 * 2**20)
-    g2 = pl2.groups[0]
-    assert g2.strategy == "linebuffer" and g2.block[1] < 256
-    x2 = rng.integers(-2**40, 2**40, (64, 256, 256)).astype(np.int64)
-    gold2 = numpy_interp.run(p, {"u": x2})["r"]
-    got2 = pb.run(p, {"u": x2}, the_plan=pl2, interpret=True)["r"]
-    assert np.array_equal(gold2, got2)
-    # double: the 'd' rep swaps plane order (hi, lo) vs ints (lo, hi) —
-    # the output plane-split path must honor it (review r3 coverage gap)
+    assert np.array_equal(gold, pair_run(p, {"u": x})["r"])
+    got2 = run_sharded(p, {"u": x}, axis_sizes=[4], dims=[1])["r"]
+    assert np.array_equal(gold, got2)
     src_d = ("kernel: lb3d\ninput double: u(256, 256, *)\n"
              "output double: r(0,0,0) = (u(-1,0,0) + u(1,0,0) + u(0,-1,0)"
              " + u(0,1,0) + u(0,0,-1) + u(0,0,1)) * 0.166 - u(0,0,0)\n")
     pd = parse(src_d)
-    pld = plan(pd, (64, 64, 128))
-    assert pld.groups[0].strategy == "linebuffer"
-    xd = rng.standard_normal((64, 64, 128))
+    xd = rng.standard_normal((16, 32, 64))
     gd = numpy_interp.run(pd, {"u": xd})["r"]
-    od = pb.run(pd, {"u": xd}, the_plan=pld, interpret=True)["r"]
+    od = pair_run(pd, {"u": xd})["r"]
     assert np.abs(gd - od).max() < 1e-12
 
 
 def test_rank4_wide_bit_exact():
-    """Rank-4 64-bit programs plan and run (generic candidate ladder +
-    pair carriers compose)."""
+    """Rank-4 64-bit programs run on the pair path."""
     p = parse("kernel: r4w\ninput int64: a(8, 8, 16, *)\n"
               "output int64: b(0,0,0,0) = a(-1,0,0,0) + a(0,1,0,0)"
               " + a(0,0,-1,0) + a(0,0,0,1) * int64(7)\n")
-    x = rng.integers(-2**40, 2**40, (8, 8, 16, 128)).astype(np.int64)
+    x = rng.integers(-2**40, 2**40, (8, 8, 16, 64)).astype(np.int64)
     gold = numpy_interp.run(p, {"a": x})["b"]
-    got = pb.run(p, {"a": x}, interpret=True)["b"]
+    got = pair_run(p, {"a": x})["b"]
     assert np.array_equal(gold, got)
 
 
@@ -859,7 +787,7 @@ def test_ds_eft_survives_jit():
     which deleted Knuth two_sum's error term under jit (observed: DS
     `const + x` degraded to f32 accuracy).  The select-anchored Fast2Sum
     must keep full DS accuracy under jax.jit — this pins the whole wide
-    path's accuracy on the CPU/interpret backends."""
+    path's accuracy on the CPU."""
     import jax
 
     import jax.numpy as jnp
@@ -881,45 +809,35 @@ def test_ds_eft_survives_jit():
     assert np.abs(got - np.sqrt(1 + x * x)).max() < 1e-12
 
 
-def test_ds_iterate_avoids_trapezoid():
-    """Fuzz seed 77 (round 3): XLA:CPU's backend optimizations corrupt
-    the double-single error-free transforms in FLAT-UNROLLED multi-sweep
-    graphs (two trapezoid sweeps degraded from ~1e-15 to ~1e-8 median
-    relative; --xla_backend_optimization_level=0 was bit-exact, proving
-    the arithmetic itself is right).  DS programs therefore fuse sweeps
-    through the per-sweep-traced fori path, which the compiler cannot
-    merge across iterations (planner._uses_ds_float)."""
-    from soda_tpu.plan import planner
-
+def test_ds_iterate_stays_accurate():
+    """Fuzz seed 77: XLA:CPU's backend optimizations corrupted the
+    double-single error-free transforms in FLAT-UNROLLED multi-sweep
+    graphs.  The pair path traces each sweep of a chunk separately; two
+    sweeps per exchange stay at DS accuracy, with an auxiliary input
+    too."""
     src = ("kernel: fw\niterate: 2\ninput double: a(64, *)\n"
            "output double: out(0, 0) = a(-1, -1) * -1.25 + a(-1, 0)"
            " + a(0, 0) * 1.5 + a(1, 1) * -0.75\n")
     p = parse(src)
     shape = (32, 128)
-    pl = planner.plan(p, shape)
-    for g in pl.groups:
-        assert not g.trapezoid, g.describe()
     x = np.random.default_rng(77).standard_normal(shape) * 10.0
     gold = numpy_interp.run(p, {"a": x})["out"]
-    got = np.asarray(pb.run(p, {"a": x}, the_plan=pl, interpret=True)["out"])
+    got = np.asarray(pair_run(p, {"a": x}, sweeps_per_exchange=2)["out"])
     sl = (slice(2, -2), slice(2, -2))
     rel = (np.abs(got[sl] - gold[sl])
            / np.maximum(np.abs(gold[sl]), 1e-30))
     assert np.median(rel) < 1e-12, np.median(rel)
 
-    # forced deep fusion still avoids the trapezoid and stays accurate
-    pl2 = planner.plan(p, shape, sweeps=2)
-    assert all(not g.trapezoid for g in pl2.groups)
-
-    # DS + auxiliary inputs: fori cannot carry aux windows and the
-    # trapezoid is unavailable -> chunked single-sweep calls
     src_aux = ("kernel: fa\niterate: 4\ninput double: a(64, *)\n"
                "input double: rhs(64, *)\n"
                "output double: out(0, 0) = (a(-1, 0) + a(1, 0)"
                " + a(0, -1) + a(0, 1)) * 0.25 + rhs(0, 0)\n")
     pa = parse(src_aux)
-    pla = planner.plan(pa, shape)
-    assert pla.groups[0].sweeps == 1, pla.groups[0].describe()
+    rhs = np.random.default_rng(78).standard_normal(shape)
+    gold_a = numpy_interp.run(pa, {"a": x, "rhs": rhs})["out"]
+    got_a = pair_run(pa, {"a": x, "rhs": rhs})["out"]
+    r = pa.valid_rim()
+    assert np.abs(gold_a[r:-r, r:-r] - got_a[r:-r, r:-r]).max() < 1e-11
 
 
 def test_ds_jit_vs_eager_bitwise_canary():
@@ -933,7 +851,7 @@ def test_ds_jit_vs_eager_bitwise_canary():
     import jax
     import jax.numpy as jnp
 
-    from soda_tpu.backend.pallas import _lane_shift
+    from soda_tpu.backend.xla import shifted_jnp
 
     x = np.random.default_rng(9).standard_normal((8, 16)) * 10.0
     lo, hi = split_planes(x)
@@ -942,7 +860,7 @@ def test_ds_jit_vs_eager_bitwise_canary():
     def one_sweep(w):
         def tp(dy, dx):
             sl = w[dy + 1:dy + 1 + 6] if dy else w[1:7]
-            return _lane_shift(sl, dx)
+            return shifted_jnp(sl, (0, dx))
         return (tp(-1, -1) * -1.25 + tp(-1, 0) + tp(0, 0) * 1.5
                 + tp(1, 1) * -0.75)
 
